@@ -9,17 +9,25 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA, no run;
-2. a fresh build of the four CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
-   with the build seconds and ptxas' register / spill report;
+2. a fresh build of the seven CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
+   register / spill report;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the bench-size main path gives it, timed with CUDA events in the order
-   plain, kernel, kernel, plain;
-4. the main path: a bench-config ``FusionSession`` replay (640x480 depth
+   its main path gives it, timed with CUDA events in the order plain,
+   kernel, kernel, plain: K1-K4 at the fusion bench config, T1-T3 at the
+   TSDF config 5;
+4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, then ``process()``; checks overflow counters, voxel count,
-   unit normals, the PCD and CSV files, and that every kernel launched;
-5. a reduced sweep through the port on the card and through its plain path
-   on the CPU, compared by cell id with the benchmark's structural gates.
+   unit normals, the PCD and CSV files, and that K1-K4 launched;
+5. reduced sweeps through the port on the card and through its plain path
+   on the CPU: the fusion path compared by cell id with the benchmark's
+   structural gates, the TSDF path by cell id (grid sums exact, extract
+   within ``checks.TSDF_TOL``);
+6. the TSDF path: the config-5 ``FusionSession(model="tsdf")`` replay of
+   the same sweep (0.8 mm pitch, S=11 samples, K=8 batches), then
+   ``process()``; checks overflow counters, frames, unit normals, the PCD
+   and CSV files, and that T1, T2, T3 and K2 launched.
 
 The last lines are a JSON object of per-kernel results, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -54,7 +62,18 @@ KERNELS = {
                    "hifi_fusion_tpu/ops/integrate.py:590"),
     "normal_fit": ("hifi_fusion_tpu_torch/csrc/normal_fit.cu",
                    "hifi_fusion_tpu/ops/refine.py:171"),
+    "segscan": ("hifi_fusion_tpu_torch/csrc/segscan.cu",
+                "hifi_fusion_tpu/ops/pallas_segscan.py:74"),
+    "tsdf_lanes": ("hifi_fusion_tpu_torch/csrc/tsdf_lanes.cu",
+                   "hifi_fusion_tpu/models/tsdf.py:86"),
+    "tsdf_surface": ("hifi_fusion_tpu_torch/csrc/tsdf_surface.cu",
+                     "hifi_fusion_tpu/models/tsdf.py:228"),
 }
+# the kernels each main path must launch
+FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
+TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
+# tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
+TSDF_PARAMS = {"n_samples": 11, "batch_unique": 1 << 21}
 
 
 def log(msg: str) -> None:
@@ -76,6 +95,17 @@ def bench_config(FusionConfig):
         refine_every=8,
         z_clip=(0.28, 0.6),
     ).validate()
+
+
+def tsdf_config(FusionConfig, TsdfConfig):
+    """TSDF config 5 as tools/tsdf_bench.py:39-76 runs it: the bench
+    config at 0.8 mm pitch over the same bbox (875 x 875 x 500 cells), a
+    2^24-slot table, 2^19 uniques a frame, no refine, K=8."""
+    base = dataclasses.replace(
+        bench_config(FusionConfig), resolution=(0.0008, 0.0008, 0.0008),
+        capacity_log2=24, max_unique_per_frame=1 << 19,
+        refine_every=0).validate()
+    return TsdfConfig(base=base, **TSDF_PARAMS)
 
 
 def nvidia_smi() -> str:
@@ -105,6 +135,17 @@ def time_pair(torch, kernel_fn, plain_fn, setup):
             times[name].append(start.elapsed_time(end))
     return statistics.median(times["kernel"]), statistics.median(
         times["plain"])
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape and the same 32-bit words (-0.0 differs from +0.0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def max_err(pairs) -> float:
+    return max((float((g.double() - w.double()).abs().max())
+                for g, w in pairs if g.numel()), default=0.0)
 
 
 def check_kernels(torch, cfg, frames, rays, dev):
@@ -212,9 +253,86 @@ def check_kernels(torch, cfg, frames, rays, dev):
     ms, pms = time_pair(torch, refine.normal_fit, refine.normal_fit_plain,
                         fit_grid)
     res["normal_fit"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    for name, r in res.items():
-        log(f"phase 3: {name}: max_abs_err {r['max_abs_err']:.3g}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    return res
+
+
+def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
+    """Phase 3, TSDF config 5: T2 and T1 on the sweep's third K=8 batch
+    (27.0 M sample lanes), T3 on the surface of a grid after two batches.
+    Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+    from hifi_fusion_tpu_torch.models import tsdf
+    from hifi_fusion_tpu_torch.ops import scatter
+    pipe = tsdf.TsdfPipeline(tcfg, dev)
+    K = tcfg.base.max_batch_frames
+    res = {}
+
+    def batch(i):
+        fs = frames[K * i:K * i + K]
+        return (pipe.put(np.stack([f.depth_q for f in fs])),
+                pipe.put(np.stack([f.rgb565 for f in fs])),
+                pipe.put(np.full((K,), fs[0].count, np.int32)),
+                pipe.put(np.stack([f.pose for f in fs])))
+
+    # T2: bit-exact
+    b2 = batch(2)
+    lanes = tsdf.tsdf_lanes(*b2, rays, tcfg)
+    want = tsdf.tsdf_lanes_plain(*b2, rays, tcfg)
+    err = max_err(zip(lanes, want))
+    if not all(bits_equal(torch, g, w) for g, w in zip(lanes, want)):
+        raise AssertionError(f"tsdf_lanes differs from plain: {err}")
+    del want
+    ms, pms = time_pair(
+        torch, lambda: tsdf.tsdf_lanes(*b2, rays, tcfg),
+        lambda: tsdf.tsdf_lanes_plain(*b2, rays, tcfg), tuple)
+    res["tsdf_lanes"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
+    # T1: bit-exact for every kind, on the batch's sorted lanes and on a
+    # flat-ladder prefix (n <= 1024)
+    sid, order = torch.sort(lanes[0], stable=True)
+    svals = lanes[1][:, order]
+    del lanes, order
+    starts = scatter.segment_starts(sid, sid != tsdf.BIG)
+    words = svals.view(torch.int32)
+    cases = [("add", svals), ("first", svals), ("first", words),
+             ("or", words)]
+    cases += [(kind, v[:, :1000].contiguous()) for kind, v in cases]
+    err = 0.0
+    for kind, v in cases:
+        f = starts[:v.shape[1]].contiguous()
+        g = scatter.segment_reduce(v, f, kind)
+        w = scatter.segment_reduce_plain(v, f, kind)
+        if not bits_equal(torch, g, w):
+            raise AssertionError(f"segscan {kind} {v.dtype} n={v.shape[1]} "
+                                 f"differs from plain")
+        err = max(err, max_err([(g, w)]))
+        del g, w
+    log(f"phase 3: segscan: {sid.numel()} lanes x 6, "
+        f"{int(starts.sum())} segments")
+    ms, pms = time_pair(torch, scatter.segment_reduce,
+                        scatter.segment_reduce_plain,
+                        lambda: (svals, starts, "add"))
+    res["segscan"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    del sid, svals, words, starts, cases
+
+    # T3: a grid after two batches; exact expected, gated at 1e-6 since
+    # the plain version's sqrt and divisions run in PyTorch's own CUDA
+    # kernels, outside this repository's compiler flags
+    grid = pipe.init()
+    for i in range(2):
+        pipe.step_batch_depth(grid, *batch(i), rays)
+    cell, slots = tsdf.surface_cells(grid, tcfg)
+    got = tsdf.tsdf_surface(cell, slots, grid, tcfg)
+    want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
+    err = max_err(zip(got, want))
+    exact = all(bits_equal(torch, g, w) for g, w in zip(got, want))
+    if err > 1e-6 or cell.numel() == 0:
+        raise AssertionError(f"tsdf_surface: {cell.numel()} cells, max "
+                             f"err {err} vs plain")
+    log(f"phase 3: tsdf_surface: {cell.numel()} surface cells, "
+        f"bit-exact {exact}")
+    ms, pms = time_pair(torch, tsdf.tsdf_surface, tsdf.tsdf_surface_plain,
+                        lambda: (cell, slots, grid, tcfg))
+    res["tsdf_surface"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
     return res
 
 
@@ -233,10 +351,11 @@ def read_pcd(path):
     return n, cols
 
 
-def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0):
+def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
+           **session_kw):
     from hifi_fusion_tpu_torch.runtime.session import FusionSession
     with FusionSession(cfg, device, output_dir=out_dir,
-                       batch_fill_wait=fill_wait) as s:
+                       batch_fill_wait=fill_wait, **session_kw) as s:
         s.start()
         t0 = time.monotonic()
         for f in frames:
@@ -255,6 +374,72 @@ def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0):
     return r, dt, t_proc
 
 
+def check_outputs(r) -> int:
+    """Zero overflow counters, unit normals, and a PCD and CSV that parse
+    with the extracted voxel count; returns that count."""
+    gm = r["grid_metrics"]
+    bad = {k: v for k, v in gm.items() if k.startswith("overflow") and v}
+    if bad:
+        raise AssertionError(f"overflow counters fired: {bad}")
+    n = r["n_points"]
+    nrm = np.linalg.norm(r["host"]["normal"].astype(np.float64), axis=1)
+    if n == 0 or np.abs(nrm - 1.0).max() > 1e-5:
+        raise AssertionError(f"{n} voxels, normals off unit by "
+                             f"{np.abs(nrm - 1.0).max(initial=0.0)}")
+    n_pcd, cols = read_pcd(r["cloud"])
+    if n_pcd != n or cols.shape != (n, 8) or not np.isfinite(cols).all():
+        raise AssertionError(f"PCD: {n_pcd} points, {cols.shape}")
+    csv = np.genfromtxt(r["metadata"], delimiter=",", skip_header=1,
+                        ndmin=2)
+    if csv.shape != (n, 7) or not np.isfinite(csv).all():
+        raise AssertionError(f"CSV: shape {csv.shape}")
+    return n
+
+
+def path_launches(names) -> dict:
+    """The launch counts of a main path's run; raises if one of its
+    kernels never launched."""
+    from hifi_fusion_tpu_torch import kernels
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched: {missing}")
+    return counts
+
+
+def tsdf_card_vs_cpu(torch, scfg, srays, sframes) -> list:
+    """Phase 5, TSDF: two K=4 batches of the reduced sweep through
+    ``TsdfPipeline`` on the card and on the CPU; problems by cell id."""
+    from hifi_fusion_tpu_torch import checks, convert
+    from hifi_fusion_tpu_torch.models import tsdf
+    tcfg = tsdf.TsdfConfig(base=scfg, truncation=0.011, n_samples=5,
+                           min_weight=2.0)
+    K = scfg.max_batch_frames
+    fields, ext = {}, {}
+    for dev in ("cuda", "cpu"):
+        pipe = tsdf.TsdfPipeline(tcfg, dev)
+        grid, rays = pipe.init(), pipe.put(srays)
+        for i in range(2):
+            fs = sframes[K * i:K * i + K]
+            pipe.step_batch_depth(
+                grid, pipe.put(np.stack([f.depth_q for f in fs])),
+                pipe.put(np.stack([f.rgb565 for f in fs])),
+                pipe.put(np.full((K,), fs[0].count, np.int32)),
+                pipe.put(np.stack([f.pose for f in fs])), rays)
+        fields[dev] = convert.tsdf_grid_to_numpy(grid, tcfg)
+        ext[dev] = tsdf.tsdf_to_host(pipe.extract(grid))
+    problems = checks.tsdf_grid_problems(fields["cuda"], fields["cpu"],
+                                         scfg.capacity)
+    problems += checks.tsdf_extract_problems(ext["cuda"], ext["cpu"])
+    log(f"phase 5: tsdf card {ext['cuda']['cell'].size} surface cells, "
+        f"cpu {ext['cpu']['cell'].size}, "
+        f"{int((fields['cpu']['key'] >= 0).sum())} grid cells, "
+        f"problems {problems}")
+    if ext["cpu"]["cell"].size == 0:
+        problems.append("no TSDF surface cells")
+    return problems
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -267,6 +452,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from hifi_fusion_tpu_torch import checks, kernels
     from hifi_fusion_tpu_torch.config import FusionConfig, small_test_config
+    from hifi_fusion_tpu_torch.models.tsdf import TsdfConfig
     from hifi_fusion_tpu_torch.utils.synthetic import (camera_rays,
                                                        make_depth_sweep)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -297,40 +483,28 @@ def main() -> int:
     log(f"phase 3: sweep of {FRAMES} frames made in "
         f"{time.monotonic() - t0:.1f} s")
     rays = torch.from_numpy(rays_np).cuda()
+    tcfg = tsdf_config(FusionConfig, TsdfConfig)
     kres = check_kernels(torch, cfg, frames, rays, torch.device("cuda"))
+    kres.update(check_tsdf_kernels(torch, tcfg, frames, rays,
+                                   torch.device("cuda")))
+    for name, r in kres.items():
+        log(f"phase 3: {name}: max_abs_err {r['max_abs_err']:.3g}, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    torch.cuda.empty_cache()
 
     # -- phase 4 -------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels.reset_launches()
         r, dt, t_proc = replay(torch, cfg, frames, rays_np, "cuda", tmp)
-        launches = dict(kernels.LAUNCHES)
-        gm = r["grid_metrics"]
-        bad = {k: v for k, v in gm.items()
-               if k.startswith("overflow") and v}
-        if bad:
-            raise AssertionError(f"overflow counters fired: {bad}")
-        n = r["n_points"]
+        fusion_launches = path_launches(FUSION_PATH)
+        n = check_outputs(r)
         if n <= 20000:
             raise AssertionError(f"only {n} voxels extracted")
-        nrm = np.linalg.norm(r["host"]["normal"].astype(np.float64), axis=1)
-        if np.abs(nrm - 1.0).max() > 1e-5:
-            raise AssertionError(f"normals not unit: {np.abs(nrm-1).max()}")
-        n_pcd, cols = read_pcd(r["cloud"])
-        if n_pcd != n or cols.shape != (n, 8) \
-                or not np.isfinite(cols).all():
-            raise AssertionError(f"PCD: {n_pcd} points, {cols.shape}")
-        csv = np.genfromtxt(r["metadata"], delimiter=",", skip_header=1,
-                            ndmin=2)
-        if csv.shape != (n, 7) or not np.isfinite(csv).all():
-            raise AssertionError(f"CSV: shape {csv.shape}")
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched: {missing}")
     mpts = FRAMES * WIDTH * HEIGHT / dt / 1e6
     log(f"phase 4: {FRAMES} frames in {dt:.3f} s = {mpts:.3f} Mpts/s "
         f"({card}); process() {t_proc:.3f} s; {n} voxels, "
         f"{int(r['host']['count'].sum())} cylinder hits; launches "
-        f"{launches}; {json.dumps(gm)}")
+        f"{fusion_launches}; {json.dumps(r['grid_metrics'])}")
 
     # -- phase 5 -------------------------------------------------------
     scfg = small_test_config(refine_every=4, max_batch_frames=4,
@@ -353,10 +527,33 @@ def main() -> int:
         f"problems {problems}")
     if problems:
         raise AssertionError(f"card vs CPU parity: {problems}")
+    tscfg = small_test_config(refine_every=0, max_batch_frames=4,
+                              z_clip=(0.05, 10.0), capacity_log2=16,
+                              max_points=srays.shape[1])
+    problems = tsdf_card_vs_cpu(torch, tscfg, srays, sframes)
+    if problems:
+        raise AssertionError(f"TSDF card vs CPU parity: {problems}")
 
+    # -- phase 6 -------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        kernels.reset_launches()
+        r, dt, t_proc = replay(torch, tcfg.base, frames, rays_np, "cuda",
+                               tmp, model="tsdf", model_params=TSDF_PARAMS)
+        tsdf_launches = path_launches(TSDF_PATH)
+        n = check_outputs(r)
+    gm = r["grid_metrics"]
+    if gm["frames"] != FRAMES:
+        raise AssertionError(f"TSDF grid counted {gm['frames']} frames")
+    mpts = FRAMES * WIDTH * HEIGHT / dt / 1e6
+    log(f"phase 6: TSDF config 5, {FRAMES} frames in {dt:.3f} s = "
+        f"{mpts:.3f} Mpts/s ({card}); process() {t_proc:.3f} s; {n} "
+        f"surface voxels; launches {tsdf_launches}; {json.dumps(gm)}")
+
+    # launches: the sum over the two main-path runs (phases 4 and 6)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kres[name]}
+         "launches": fusion_launches[name] + tsdf_launches[name],
+         **kres[name]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

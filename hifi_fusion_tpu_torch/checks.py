@@ -19,6 +19,17 @@ Tolerances and their reasons:
 * extract parity between two runs (``parity_gates``): the structural gates
   of the JAX package's benchmark parity check (bench.py:723-728), which
   tolerate borderline single-point gate flips but not mass drops.
+* TSDF grids (``tsdf_grid_problems``), compared by cell id: the key set,
+  both overflow counters and ``frames`` exactly; ``vstats`` exactly.  The
+  port reproduces the JAX package's sample arithmetic (XLA's fused
+  multiply-adds included) and its segmented-scan association order, so
+  every per-cell sum is the same f32 value; any difference is a fault.
+* TSDF extracts (``tsdf_extract_problems``): the cell set and the weights
+  exactly (they follow from the grid); the TSDF value within 1e-6, the
+  centroid within 1e-6 m and the normal within 1e-5 (the tolerances the
+  extract gates of the port's tests state: one-ulp differences of the
+  gradient arithmetic, should any operation round differently, move a
+  normal by ~1e-7 and a centroid by less than the TSDF value's ulp).
 """
 
 from __future__ import annotations
@@ -109,3 +120,58 @@ def by_cell(fields: dict, config) -> dict:
                  "reclaimed", "frames"):
         out[name] = int(fields[name])
     return out
+
+
+TSDF_TOL = {"tsdf": 1e-6, "centroid": 1e-6, "normal": 1e-5}
+
+
+def tsdf_by_cell(fields: dict, capacity: int) -> dict:
+    """A TSDF grid's fields (numpy, JAX layout, scratch tails allowed) keyed
+    by cell id: ascending ``cell``, its (n,6) ``vstats`` rows, and the
+    counters."""
+    key = np.asarray(fields["key"])[:capacity]
+    slots = np.nonzero(key >= 0)[0]
+    slots = slots[np.argsort(key[slots], kind="stable")]
+    out = {"cell": key[slots],
+           "vstats": np.asarray(fields["vstats"])[:6 * capacity]
+           .reshape(capacity, 6)[slots]}
+    for name in ("overflow_probe", "overflow_unique", "frames"):
+        out[name] = int(fields[name])
+    return out
+
+
+def tsdf_grid_problems(a: dict, b: dict, capacity: int) -> list:
+    """Problems (empty when none) between two TSDF grids' fields (numpy,
+    JAX layout) compared by cell id, ``b`` the reference."""
+    a, b = tsdf_by_cell(a, capacity), tsdf_by_cell(b, capacity)
+    problems = [f"{k}: {a[k]} != {b[k]}" for k in
+                ("overflow_probe", "overflow_unique", "frames")
+                if a[k] != b[k]]
+    if not np.array_equal(a["cell"], b["cell"]):
+        problems.append(f"cell sets differ: {a['cell'].size} vs "
+                        f"{b['cell'].size} cells, sym_diff "
+                        f"{np.setxor1d(a['cell'], b['cell']).size}")
+    elif not np.array_equal(a["vstats"], b["vstats"]):
+        bad = int((a["vstats"] != b["vstats"]).any(axis=1).sum())
+        problems.append(f"vstats differ on {bad} cells")
+    return problems
+
+
+def tsdf_extract_problems(a: dict, b: dict) -> list:
+    """Problems (empty when none) between two TSDF extract host dicts
+    (``cell``, ``weight``, ``tsdf``, ``centroid``, ``normal``), ``b`` the
+    reference, under the tolerances of ``TSDF_TOL``."""
+    if not np.array_equal(a["cell"], b["cell"]):
+        return [f"cell sets differ: {np.asarray(a['cell']).size} vs "
+                f"{np.asarray(b['cell']).size} cells, sym_diff "
+                f"{np.setxor1d(a['cell'], b['cell']).size}"]
+    problems = []
+    if not np.array_equal(a["weight"], b["weight"]):
+        problems.append("weights differ")
+    for name, tol in TSDF_TOL.items():
+        err = float(np.abs(np.asarray(a[name], np.float64)
+                           - np.asarray(b[name], np.float64)).max(
+            initial=0.0))
+        if err > tol:
+            problems.append(f"{name} differs by {err:.3g} > {tol}")
+    return problems

@@ -3,8 +3,10 @@
 ``grid_from_jax`` takes the JAX ``GridState`` fields as numpy arrays (for
 example ``{f: np.asarray(getattr(g, f)) for f in g._fields}``) and strips
 the scatter scratch tails; ``grid_to_numpy`` gives the port's state back in
-the JAX package's dtypes without tails.  With them a test starts both
-packages from one state.
+the JAX package's dtypes without tails.  ``tsdf_grid_from_jax`` and
+``tsdf_grid_to_numpy`` do the same for the TSDF family's grid, the second
+restoring the tails.  With them a test starts both packages from one
+state.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .config import FusionConfig
 from .grid import SCALAR_FIELDS, GridState
+from .models.tsdf import TsdfGrid, tail
 
 
 def _live_sizes(config: FusionConfig) -> Dict[str, int]:
@@ -53,5 +56,34 @@ def grid_to_numpy(grid: GridState) -> Dict[str, np.ndarray]:
     for f in (fld.name for fld in dataclasses.fields(grid)):
         a = getattr(grid, f).detach().cpu().numpy()
         out[f] = a.view(np.uint32) if f == "occ_bits" else a
+    return out
+
+
+def tsdf_grid_from_jax(np_fields: Dict[str, np.ndarray], config,
+                       device) -> TsdfGrid:
+    """JAX ``TsdfGrid`` fields (numpy) -> port ``TsdfGrid`` on ``device``:
+    ``key`` and ``vstats`` lose their scratch tails."""
+    C = config.base.capacity
+    out = {"key": np.asarray(np_fields["key"])[:C],
+           "vstats": np.asarray(np_fields["vstats"])[:6 * C]}
+    out = {f: torch.from_numpy(np.array(a)).to(device)
+           for f, a in out.items()}
+    for name in ("overflow_probe", "overflow_unique", "frames"):
+        out[name] = torch.tensor(int(np_fields[name]), dtype=torch.int32,
+                                 device=device)
+    return TsdfGrid(**out)
+
+
+def tsdf_grid_to_numpy(grid: TsdfGrid, config) -> Dict[str, np.ndarray]:
+    """Port ``TsdfGrid`` -> numpy fields in the JAX layout, the scratch
+    tails restored (``key`` -1, ``vstats`` 0), so the JAX package can take
+    the state back."""
+    T = tail(config)
+    key = grid.key.detach().cpu().numpy()
+    vstats = grid.vstats.detach().cpu().numpy()
+    out = {"key": np.concatenate([key, np.full(T, -1, np.int32)]),
+           "vstats": np.concatenate([vstats, np.zeros(6 * T, np.float32)])}
+    for name in ("overflow_probe", "overflow_unique", "frames"):
+        out[name] = getattr(grid, name).detach().cpu().numpy()
     return out
 

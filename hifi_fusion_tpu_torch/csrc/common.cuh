@@ -2,7 +2,10 @@
 //
 // Every kernel takes the grid geometry as one by-value struct built on the
 // host from two small arrays (kernels/__init__.py geometry_args): origin,
-// resolution, bbox lower and upper corners (f32) and the grid dims (i32).
+// resolution, bbox lower and upper corners, the f32 reciprocal resolution
+// (f32) and the grid dims (i32).  A cell coordinate is
+// floor((p - origin) * inv_res), as XLA computes the JAX package's
+// division by the constant resolution (ops/geometry.py cell_coords).
 // Floating-point arithmetic that feeds a floor or a strict comparison is
 // written with round-to-nearest intrinsics in the JAX package's operation
 // order, so no fused multiply-add can move a result by one rounding.
@@ -16,6 +19,7 @@ struct Geo {
     float res[3];
     float lo[3];
     float hi[3];
+    float inv_res[3];
     int dims[3];
 };
 
@@ -26,6 +30,7 @@ static inline Geo make_geo(const float* f, const int* i) {
         g.res[a] = f[3 + a];
         g.lo[a] = f[6 + a];
         g.hi[a] = f[9 + a];
+        g.inv_res[a] = f[12 + a];
         g.dims[a] = i[a];
     }
     return g;

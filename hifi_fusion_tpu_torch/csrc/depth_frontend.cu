@@ -7,8 +7,9 @@
 // batched frontend (integrate.py:241-287).  Per (frame, pixel) lane:
 // unproject u16 depth against the resident ray table, count-prefix and
 // zero-depth validity, camera-z clip, SE(3) pose transform, strict bbox
-// test, floor((w - origin) / res), coord validity, dense cell id, and the
-// rgb565 expansion (x8, x4, x8).
+// test, floor((w - origin) * inv_res) (XLA's form of the division by the
+// constant resolution, common.cuh), coord validity, dense cell id, and
+// the rgb565 expansion (x8, x4, x8).
 //
 // Bound on the card: memory.  A lane reads 4 B of wire (depth, rgb565) and
 // 12 B of rays and writes 28 B (world xyz, id, rgb), about 44 B; a K=8
@@ -58,7 +59,7 @@ __global__ void depth_frontend_kernel(
     for (int a = 0; a < 3; ++a) {
         valid = valid && w[a] > g.lo[a] && w[a] < g.hi[a];
         const float f =
-            floorf(__fdiv_rn(__fsub_rn(w[a], g.origin[a]), g.res[a]));
+            floorf(__fmul_rn(__fsub_rn(w[a], g.origin[a]), g.inv_res[a]));
         c[a] = (int)f;
         valid = valid && c[a] >= 0 && c[a] < g.dims[a];
     }

@@ -1,9 +1,10 @@
 """Builds, loads and counts the port's hand-written CUDA kernels.
 
-Every source under ``hifi_fusion_tpu_torch/csrc/*.cu`` compiles in ONE
-``nvcc`` call into ``hifi_fusion_tpu_torch/_build/libhifi_kernels.so``
-(``sm_90a``, a plain C interface, no PyTorch headers), at first use and
-only from the sources in the checkout.  The library is loaded with
+Every source under ``hifi_fusion_tpu_torch/csrc/*.cu`` compiles with its
+own ``nvcc -c`` call, all started together, and one link makes
+``hifi_fusion_tpu_torch/_build/libhifi_kernels.so`` (``sm_90a``, a plain C
+interface, no PyTorch headers), at first use and only from the sources in
+the checkout.  The library is loaded with
 ``ctypes``; every pointer and the stream pass as ``c_void_p``.  A launcher
 returns ``cudaGetLastError()`` and ``check`` raises when it is not 0.
 
@@ -35,11 +36,12 @@ BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libhifi_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
-            "normal_fit": 0}
+            "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
+            "tsdf_surface": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -61,6 +63,16 @@ _SIGNATURES = {
     # nvec, gated, normal, normal_found, stream
     "launch_normal_fit": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                           _P, _P, _P],
+    # vals, starts, k, n, kind, out, summ, aux, stream
+    "launch_segscan": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # depth, rgb565, counts, poses, rays, K, N, S, step, half, geo_f,
+    # geo_i, zmin, zmax, skey, vals, stream
+    "launch_tsdf_lanes": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P,
+                          _F, _F, _P, _P, _P],
+    # cell, order, E, key, vstats, capacity, max_probes, geo_f, geo_i,
+    # centroid, normal, tsdf, weight, rgb, stream
+    "launch_tsdf_surface": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -77,7 +89,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -97,27 +109,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first that
+    fails, else return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libhifi_kernels.so`` unless a
-    library built from the same sources and flags is already there."""
+    library built from the same sources and flags is already there: one
+    ``nvcc -c`` per source, all started together, then one link."""
     stamp = BUILD_DIR / "libhifi_kernels.sha256"
     digest = _digest()
     if LIB_PATH.exists() and stamp.exists() \
             and stamp.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libhifi_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    pid = os.getpid()
+    nvcc = _nvcc()
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, cmds = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{pid}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    report = _run_all(cmds)
+    tmp = BUILD_DIR / f"libhifi_kernels.{pid}.so"
+    _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
-    BUILD_INFO.update(seconds=time.monotonic() - t0,
-                      ptxas=proc.stdout + proc.stderr)
+    BUILD_INFO.update(seconds=time.monotonic() - t0, ptxas=report)
     return LIB_PATH
 
 
@@ -146,11 +177,14 @@ def check(rc: int, name: str) -> None:
 
 def geometry_args(config):
     """Host arrays for the launchers' ``geo_f`` (origin, resolution, bbox
-    lower and upper corner, 12 f32) and ``geo_i`` (dims, 3 i32) pointers.
-    The arrays must stay referenced until the launch returns."""
+    lower and upper corner, the f32 reciprocal resolution: 15 f32) and
+    ``geo_i`` (dims, 3 i32) pointers.  The arrays must stay referenced
+    until the launch returns."""
+    from ..ops.geometry import inv_resolution
     b = config.bbox
     f = np.asarray(list(config.origin) + list(config.resolution)
                    + [b[0], b[2], b[4], b[1], b[3], b[5]], np.float32)
+    f = np.concatenate([f, inv_resolution(config)])
     i = np.asarray(config.dims, np.int32)
     return f, i
 

@@ -1,0 +1,459 @@
+"""TSDF-weighted fusion (BASELINE config 5), the port's second model family.
+
+The counterpart of ``hifi_fusion_tpu/models/tsdf.py`` for the depth wire.
+Each valid pixel's point places S samples along its camera ray at the
+centered offsets ``(s - (S-1)/2) * step`` inside +-truncation; a sample's
+cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf = -offset, the
+colour on the middle sample only).  One batch of K frames:
+
+1. the sample lanes, kernel T2 (``tsdf_lanes``): the depth-wire inputs, the
+   pose transform, ray, distance, direction, the S sample positions, their
+   cell ids and the six values, lanes laid out ``k*S*N + s*N + n``;
+2. one stable sort of the cell ids and a gather of the six channels;
+3. the per-cell sums, kernel T1 (``ops/scatter.segment_sums``), in the
+   JAX package's association order, so the sums are bit-identical;
+4. the first U segment starts and ends (the U smallest ids; the rest are
+   dropped and counted in ``overflow_unique``, as the JAX package's
+   ``[:U]`` drops them);
+5. find-or-insert of those U ids, kernel K2 (``ops/hashing``);
+6. one scatter of the per-cell sums into ``vstats`` at the unique slots.
+
+Surface extraction (``extract_tsdf``) masks the cells with weight >=
+min_weight and |tsdf| < surface_band * res, sorts them by id, and per
+surface cell runs kernel T3 (``tsdf_surface``): the 6-neighbour hash
+lookups, central or one-sided TSDF differences, the normal, the centroid
+``center - tsdf * normal`` and the mean colour.
+
+XLA on the CPU contracts two expressions of the JAX source into fused
+multiply-adds inside jit: the sample position ``world + s*dirn`` is
+``fma(s, dirn, world)`` and the squared ray length is ``fma(z, z, fma(y,
+y, x*x))``; the port computes both that way (``__fmaf_rn`` in T2,
+``geometry.fma_f32`` in the plain version), so the lanes, and with the
+scan's association order the grid's sums, are bit-identical to the JAX
+package's.  XLA also turns the source's products with the 0/1 weight into
+selects, so an invalid lane holds +0.0 in every channel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..config import FusionConfig
+from ..io.pcd import _pack_rgb_float
+from ..ops import geometry, hashing
+from ..ops.integrate import _u16_to_i32
+from ..ops.scatter import segment_ends, segment_starts, segment_sums
+
+BIG = torch.iinfo(torch.int32).max     # sort key of an invalid sample lane
+
+
+@dataclasses.dataclass(frozen=True)
+class TsdfConfig:
+    """The JAX package's ``TsdfConfig`` fields and defaults.
+
+    ``batch_unique``: distinct sample cells per K-frame batch (the batched
+    step's U budget); 0 = K x 4 x ``max_unique_per_frame``.  Consecutive
+    frames' truncation bands overlap heavily, so the union is well below K
+    x the per-frame uniques: on the 0.8 mm config-5 sweep ~1.07 M cells a
+    frame and 1.15-1.26 M distinct cells per K=8 batch, under the 2^21
+    budget that tools/tsdf_bench.py runs with zero overflow."""
+    base: FusionConfig
+    truncation: float = 0.004      # truncation band tau (m)
+    n_samples: int = 9             # samples along the ray inside +-tau
+    min_weight: float = 3.0        # extraction weight gate
+    surface_band: float = 1.0      # |tsdf| < surface_band * res -> surface
+    batch_unique: int = 0
+
+
+@dataclasses.dataclass
+class TsdfGrid:
+    """Hash table and per-cell sums, on one device, without scratch tails."""
+    key: torch.Tensor              # (C,)  i32 dense cell id, -1 = empty
+    vstats: torch.Tensor           # (6C,) f32 [Σw, Σw*sdf, Σr, Σg, Σb, n_rgb]
+    overflow_probe: torch.Tensor   # () i32 inserts dropped (probe bound)
+    overflow_unique: torch.Tensor  # () i32 sample cells dropped (U budget)
+    frames: torch.Tensor           # () i32
+
+    @property
+    def device(self) -> torch.device:
+        return self.key.device
+
+
+def tail(config: TsdfConfig) -> int:
+    """The JAX grid's scratch-tail length (tsdf.py:65-71), which also caps
+    the batched step's U budget."""
+    return max(config.base.scatter_tail,
+               min(config.n_samples * config.base.max_points,
+                   4 * config.base.max_unique_per_frame),
+               config.batch_unique)
+
+
+def make_tsdf_grid(config: TsdfConfig, device) -> TsdfGrid:
+    device = torch.device(device)
+    C = config.base.capacity
+    zero = {f: torch.zeros((), dtype=torch.int32, device=device)
+            for f in ("overflow_probe", "overflow_unique", "frames")}
+    return TsdfGrid(
+        key=torch.full((C,), -1, dtype=torch.int32, device=device),
+        vstats=torch.zeros((6 * C,), dtype=torch.float32, device=device),
+        **zero)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _sample_step(config: TsdfConfig):
+    """(step, half): offset s = (s_index - half) * step in f32, with step
+    computed in f64 on the host and cast (tsdf.py:111-112)."""
+    S = config.n_samples
+    return np.float32(2.0 * config.truncation / (S - 1)), \
+        np.float32((S - 1) / 2.0)
+
+
+# -- sample lanes (kernel T2) ----------------------------------------------
+
+def tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config):
+    cfg = config.base
+    K, N = depth.shape
+    S = config.n_samples
+    dev = depth.device
+    f32 = torch.float32
+    d = _u16_to_i32(depth)
+    pc = d.to(f32)[:, None, :] * rays[None]                  # (K,3,N)
+    lane = torch.arange(N, device=dev, dtype=torch.int32)
+    ok = ((lane[None, :] < counts[:, None]) & (d > 0)
+          & (pc[:, 2] > _f32(cfg.z_clip[0], dev))
+          & (pc[:, 2] < _f32(cfg.z_clip[1], dev)))            # (K,N)
+    world = geometry.transform_points(pc, poses)              # (K,3,N)
+    ray = world - poses[:, :3, 3, None]
+    x, y, z = ray[:, 0], ray[:, 1], ray[:, 2]
+    dist = torch.sqrt(geometry.fma_f32(z, z, geometry.fma_f32(y, y,
+                                                              x * x)))
+    dirn = ray / torch.maximum(dist, _f32(1e-6, dev))[:, None]
+    step, half = _sample_step(config)
+    s = (torch.arange(S, dtype=f32, device=dev) - _f32(half, dev)) \
+        * _f32(step, dev)                                     # (S,)
+    w3 = world.transpose(0, 1)[:, :, None, :]                 # (3,K,1,N)
+    pos = geometry.fma_f32(s[None, None, :, None],
+                           dirn.transpose(0, 1)[:, :, None, :], w3)
+    coords = geometry.cell_coords(pos, cfg)                   # (3,K,S,N)
+    valid = (ok[:, None, :] & geometry.valid_points(pos, cfg)
+             & geometry.valid_coords(coords, cfg))            # (K,S,N)
+    skey = torch.where(valid, geometry.cell_id(coords, cfg),
+                       torch.full_like(valid, BIG, dtype=torch.int32))
+    v = _u16_to_i32(rgb565)
+    rgb = torch.stack([((v >> 11) & 0x1F).to(f32) * 8.0,
+                       ((v >> 5) & 0x3F).to(f32) * 4.0,
+                       (v & 0x1F).to(f32) * 8.0], dim=0)      # (3,K,N)
+    # XLA turns the JAX source's products with a 0/1 weight into selects,
+    # so an invalid lane holds +0.0 in every channel
+    zero = _f32(0.0, dev)
+    cm = valid & (torch.arange(S, device=dev) == S // 2)[None, :, None]
+    vals6 = torch.stack([valid.to(f32),
+                         torch.where(valid, (-s)[None, :, None], zero),
+                         torch.where(cm, rgb[0][:, None, :], zero),
+                         torch.where(cm, rgb[1][:, None, :], zero),
+                         torch.where(cm, rgb[2][:, None, :], zero),
+                         cm.to(f32)], dim=0)
+    M = K * S * N
+    return skey.reshape(M), vals6.reshape(6, M)
+
+
+def tsdf_lanes(depth: torch.Tensor, rgb565: torch.Tensor,
+               counts: torch.Tensor, poses: torch.Tensor, rays: torch.Tensor,
+               config: TsdfConfig):
+    """(K,N) u16 depth and rgb565, (K,) i32 counts, (K,4,4) f32 poses,
+    (3,N) f32 rays -> ``(skey (K*S*N,) i32 cell id or INT32_MAX, vals6
+    (6, K*S*N) f32)``, lane ``k*S*N + s*N + n``.  Kernel T2 on CUDA tensors,
+    its plain version on CPU tensors; bit-identical."""
+    K, N = depth.shape
+    dev = depth.device
+    for name, t, dtype, shape in (
+            ("depth", depth, torch.uint16, (K, N)),
+            ("rgb565", rgb565, torch.uint16, (K, N)),
+            ("counts", counts, torch.int32, (K,)),
+            ("poses", poses, torch.float32, (K, 4, 4)),
+            ("rays", rays, torch.float32, (3, N))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+    if dev.type == "cpu":
+        return tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    S = config.n_samples
+    M = K * S * N
+    skey = torch.empty((M,), dtype=torch.int32, device=dev)
+    vals6 = torch.empty((6, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return skey, vals6
+    step, half = _sample_step(config)
+    cfg = config.base
+    gf, gi = kernels.geometry_args(cfg)
+    lib = kernels.library()
+    kernels.check(lib.launch_tsdf_lanes(
+        depth.data_ptr(), rgb565.data_ptr(), counts.data_ptr(),
+        poses.data_ptr(), rays.data_ptr(), K, N, S, float(step),
+        float(half), kernels.ptr(gf), kernels.ptr(gi),
+        float(cfg.z_clip[0]), float(cfg.z_clip[1]), skey.data_ptr(),
+        vals6.data_ptr(), kernels.stream()), "tsdf_lanes")
+    kernels.LAUNCHES["tsdf_lanes"] += 1
+    return skey, vals6
+
+
+# -- reduce and integrate --------------------------------------------------
+
+def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
+                U: int, config: TsdfConfig) -> TsdfGrid:
+    """Sample lanes -> grid update in place (tsdf.py:135-182): sort by cell
+    id, segment sums, find-or-insert of the first U distinct cells, one
+    scatter of their sums.  Does not count frames."""
+    C = config.base.capacity
+    sid, order = torch.sort(skey, stable=True)
+    svals = vals6[:, order]
+    svalid = sid != BIG
+    starts = segment_starts(sid, svalid)
+    ends = segment_ends(sid, svalid)
+    sums6 = segment_sums(svals, starts)
+    spos = torch.nonzero(starts).squeeze(1)
+    epos = torch.nonzero(ends).squeeze(1)
+    grid.overflow_unique += max(spos.numel() - U, 0)
+    uids = sid[spos[:U]]
+    usums = sums6[:, epos[:U]]
+    uslot, n_failed = hashing.lookup_or_insert(
+        grid.key, uids, config.base.max_probes, C)
+    grid.overflow_probe += n_failed
+    placed = uslot >= 0
+    grid.vstats.view(C, 6).index_add_(0, uslot[placed].long(),
+                                      usums[:, placed].t())
+    return grid
+
+
+def integrate_tsdf_batch_depth(grid: TsdfGrid, depth, rgb565, counts,
+                               poses, rays, config: TsdfConfig) -> TsdfGrid:
+    """K depth frames ((K,N) u16 depth and rgb565, (K,) i32 counts,
+    (K,4,4) poses) in one sort / scan / insert / scatter pass, in place;
+    U follows tsdf.py:211-213."""
+    K, N = depth.shape
+    skey, vals6 = tsdf_lanes(depth, rgb565, counts, poses, rays, config)
+    U = min(config.batch_unique
+            or K * 4 * config.base.max_unique_per_frame,
+            skey.shape[0], tail(config))
+    tsdf_reduce(grid, skey, vals6, U, config)
+    grid.frames += K
+    return grid
+
+
+def integrate_tsdf_depth(grid: TsdfGrid, depth, rgb565, count, pose, rays,
+                         config: TsdfConfig) -> TsdfGrid:
+    """One depth frame ((N,) u16 depth and rgb565, 0-d i32 count, (4,4)
+    pose); U follows tsdf.py:188."""
+    skey, vals6 = tsdf_lanes(depth[None], rgb565[None], count.reshape(1),
+                             pose[None], rays, config)
+    U = min(4 * config.base.max_unique_per_frame, skey.shape[0])
+    tsdf_reduce(grid, skey, vals6, U, config)
+    grid.frames += 1
+    return grid
+
+
+# -- surface extraction (kernel T3) ----------------------------------------
+
+@dataclasses.dataclass
+class TsdfExtract:
+    n_valid: int
+    cell: torch.Tensor       # (E,)  i32 ascending dense ids
+    centroid: torch.Tensor   # (3,E) f32 surface-projected position
+    normal: torch.Tensor     # (3,E) f32 TSDF-gradient normal
+    tsdf: torch.Tensor       # (E,)  f32 weighted mean signed distance
+    weight: torch.Tensor     # (E,)  f32
+    rgb: torch.Tensor        # (3,E) f32
+
+
+def _mean_sdf(vstats: torch.Tensor, C: int) -> torch.Tensor:
+    v2 = vstats.view(C, 6)
+    return v2[:, 1] / torch.maximum(v2[:, 0], _f32(1e-9, vstats.device))
+
+
+def tsdf_surface_plain(cell, order, grid, config):
+    cfg = config.base
+    C = cfg.capacity
+    dev = cell.device
+    f32 = torch.float32
+    v2 = grid.vstats.view(C, 6)
+    tsdf_all = _mean_sdf(grid.vstats, C)
+    coords = geometry.id_to_coords(cell, cfg)                 # (3,E)
+    center = geometry.cell_center(coords, cfg)
+    o = order.long()
+    t_here = tsdf_all[o]
+    res = cfg.resolution
+    grads = []
+    for axis in range(3):
+        vals = []
+        for sign in (1, -1):
+            cc = coords.clone()
+            cc[axis] += sign
+            ok = geometry.valid_coords(cc, cfg)
+            sl = torch.full_like(cell, -1)
+            sl[ok] = hashing.lookup(grid.key, geometry.cell_id(cc[:, ok],
+                                                               cfg),
+                                    cfg.max_probes, C)
+            safe = sl.clamp(min=0).long()
+            has = (sl >= 0) & (v2[safe, 0] > 0)
+            vals.append((torch.where(has, tsdf_all[safe], t_here), has))
+        (fp, okp), (fm, okm) = vals
+        span = (okp.to(f32) + okm.to(f32)) * _f32(res[axis], dev)
+        grads.append((fp - fm) / torch.maximum(span, _f32(1e-9, dev)))
+    gx, gy, gz = grads
+    # XLA's rounding of this sum of squares varies with its fusion; the
+    # contracted form nearest to it (checks.py states the tolerance)
+    gnorm = torch.sqrt(geometry.fma_f32(gz, gz, geometry.fma_f32(gy, gy,
+                                                                 gx * gx)))
+    ok = gnorm > _f32(1e-9, dev)
+    inv = _f32(1.0, dev) / torch.where(ok, gnorm, _f32(1.0, dev))
+    normal = torch.stack([gx * inv, gy * inv,
+                          torch.where(ok, gz * inv, _f32(1.0, dev))], dim=0)
+    centroid = geometry.fma_f32(-t_here[None], normal, center)
+    rgb = v2[o, 2:5].t() / torch.maximum(v2[o, 5], _f32(1.0, dev))[None]
+    return centroid, normal, t_here, v2[o, 0], rgb
+
+
+def tsdf_surface(cell: torch.Tensor, order: torch.Tensor, grid: TsdfGrid,
+                 config: TsdfConfig):
+    """Per surface cell ((E,) i32 ascending ids and their (E,) i32 slots):
+    ``(centroid (3,E), normal (3,E), tsdf (E,), weight (E,), rgb (3,E))``
+    as tsdf.py:262-298 computes them.  Kernel T3 on CUDA tensors, its plain
+    version on CPU tensors; bit-identical."""
+    dev = grid.device
+    E = cell.shape[0]
+    for name, t in (("cell", cell), ("order", order)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (E,) \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous ({E},) int32 on "
+                             f"{dev}")
+    if dev.type == "cpu":
+        return tsdf_surface_plain(cell, order, grid, config)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    f32 = torch.float32
+    centroid = torch.empty((3, E), dtype=f32, device=dev)
+    normal = torch.empty((3, E), dtype=f32, device=dev)
+    tsdf = torch.empty((E,), dtype=f32, device=dev)
+    weight = torch.empty((E,), dtype=f32, device=dev)
+    rgb = torch.empty((3, E), dtype=f32, device=dev)
+    if E:
+        cfg = config.base
+        gf, gi = kernels.geometry_args(cfg)
+        lib = kernels.library()
+        kernels.check(lib.launch_tsdf_surface(
+            cell.data_ptr(), order.data_ptr(), E, grid.key.data_ptr(),
+            grid.vstats.data_ptr(), cfg.capacity, cfg.max_probes,
+            kernels.ptr(gf), kernels.ptr(gi), centroid.data_ptr(),
+            normal.data_ptr(), tsdf.data_ptr(), weight.data_ptr(),
+            rgb.data_ptr(), kernels.stream()), "tsdf_surface")
+        kernels.LAUNCHES["tsdf_surface"] += 1
+    return centroid, normal, tsdf, weight, rgb
+
+
+def surface_cells(grid: TsdfGrid, config: TsdfConfig):
+    """The surface mask over the live table (tsdf.py:244-250) and one id
+    sort: ``(cell (E,) i32 ascending, order (E,) i32 slots)``."""
+    cfg = config.base
+    C = cfg.capacity
+    dev = grid.device
+    w_all = grid.vstats.view(C, 6)[:, 0]
+    gate = np.float32(config.surface_band) * np.float32(cfg.resolution[0])
+    surface = ((grid.key >= 0) & (w_all >= _f32(config.min_weight, dev))
+               & (_mean_sdf(grid.vstats, C).abs() < _f32(gate, dev)))
+    slots = torch.nonzero(surface).squeeze(1)
+    cell, perm = torch.sort(grid.key[slots])
+    return cell, slots[perm].to(torch.int32)
+
+
+def extract_tsdf(grid: TsdfGrid, config: TsdfConfig) -> TsdfExtract:
+    """The surface cells in ascending id order, sized from the live count
+    (no cap and no re-extract)."""
+    cell, order = surface_cells(grid, config)
+    centroid, normal, tsdf, weight, rgb = tsdf_surface(cell, order, grid,
+                                                       config)
+    return TsdfExtract(n_valid=int(cell.numel()), cell=cell,
+                       centroid=centroid, normal=normal, tsdf=tsdf,
+                       weight=weight, rgb=rgb)
+
+
+def tsdf_to_host(result: TsdfExtract) -> dict:
+    """TsdfExtract -> numpy dict; planar fields become (n,3)."""
+    out = {}
+    for f in ("cell", "centroid", "normal", "tsdf", "weight", "rgb"):
+        a = getattr(result, f).detach().cpu().numpy()
+        out[f] = np.ascontiguousarray(a.T) if a.ndim == 2 else a
+    return out
+
+
+# -- the pipeline the session drives ---------------------------------------
+
+class TsdfPipeline:
+    """The config, the device, and the entry points over a ``TsdfGrid``,
+    shaped like ``FusionPipeline``.  Every step updates the grid in place
+    and returns it.  ``refine`` is a no-op: every sample lands at
+    integrate time."""
+
+    def __init__(self, config: TsdfConfig, device):
+        config.base.validate()
+        self.config = config
+        self.device = torch.device(device)
+
+    def init(self) -> TsdfGrid:
+        return make_tsdf_grid(self.config, self.device)
+
+    def put(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> tensor on the pipeline's device."""
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def step_depth(self, grid, depth, rgb565, count, pose, rays) -> TsdfGrid:
+        return integrate_tsdf_depth(grid, depth, rgb565, count, pose, rays,
+                                    self.config)
+
+    def step_batch_depth(self, grid, depth, rgb565, counts, poses, rays
+                         ) -> TsdfGrid:
+        return integrate_tsdf_batch_depth(grid, depth, rgb565, counts,
+                                          poses, rays, self.config)
+
+    def refine(self, grid: TsdfGrid) -> TsdfGrid:
+        return grid
+
+    def extract(self, grid: TsdfGrid) -> TsdfExtract:
+        return extract_tsdf(grid, self.config)
+
+    def extract_host(self, grid: TsdfGrid) -> dict:
+        """The surface as the export dict ``process()`` writes
+        (tsdf.py:380-410): ``count`` = the rounded weight (samples fused),
+        ``mean_dist`` = the TSDF value, ``sd`` / ``sd_dist`` / ``var_t``
+        zeros (TSDF keeps first moments only)."""
+        h = tsdf_to_host(self.extract(grid))
+        n = h["cell"].shape[0]
+        count = np.round(h["weight"]).astype(np.int32)
+        return {
+            "cell": h["cell"], "centroid": h["centroid"],
+            "normal": h["normal"], "rgb": h["rgb"], "count": count,
+            "mean_dist": h["tsdf"], "sd": np.zeros((n, 3), np.float32),
+            "sd_dist": np.zeros((n,), np.float32), "n_pts": count.copy(),
+            "var_t": np.zeros((n,), np.float32),
+            "rgb_packed": _pack_rgb_float(h["rgb"]).view(np.uint32),
+        }
+
+    def grid_metrics(self, grid: TsdfGrid) -> dict:
+        """tsdf.py:421-431: occupied slots, frames, both overflow
+        counters; one fetch."""
+        vals = torch.stack([(grid.key >= 0).sum().to(torch.int64),
+                            grid.frames.to(torch.int64),
+                            grid.overflow_probe.to(torch.int64),
+                            grid.overflow_unique.to(torch.int64)]).tolist()
+        return dict(zip(("occupied_voxels", "frames", "overflow_probe",
+                         "overflow_unique"), vals))

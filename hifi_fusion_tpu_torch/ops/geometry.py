@@ -4,10 +4,12 @@ The counterpart of ``hifi_fusion_tpu/ops/geometry.py``, with the same
 operation order, so that every f32 result is bit-identical to the JAX
 package's:
 
-* ``cell_coords``: ``floor((p - origin) / res)`` with a true division (a
-  reciprocal multiply, as PyTorch's CUDA division does for a CPU-scalar
-  divisor, would move borderline points into another cell; the divisor is
-  therefore always a device tensor);
+* ``cell_coords``: ``floor((p - origin) * inv_res)`` with ``inv_res`` the
+  f32 reciprocal ``1 / res`` rounded once.  The JAX source divides by
+  ``res``, but ``res`` is a compile-time constant of every jitted program
+  and XLA rewrites a division by a constant into a multiply by its folded
+  reciprocal; about one coordinate in a million floors differently under
+  the two forms, so the port multiplies as the JAX package's programs do;
 * ``cell_center``: ``origin + res * (coord + 0.5)`` rounded once, as the
   fused multiply-add XLA makes of it;
 * ``transform_points``: ``((R00*x + R01*y) + R02*z) + t0``, one rounding
@@ -16,6 +18,7 @@ package's:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import FusionConfig
@@ -28,12 +31,18 @@ def _col(values, ndim: int, dtype, device) -> torch.Tensor:
         (3,) + (1,) * (ndim - 1))
 
 
+def inv_resolution(config: FusionConfig) -> np.ndarray:
+    """(3,) f32 ``1 / res``, divided in f32 as XLA folds the constant."""
+    return np.float32(1.0) / np.asarray(config.resolution, np.float32)
+
+
 def cell_coords(points: torch.Tensor, config: FusionConfig) -> torch.Tensor:
     """(3, ...) world points -> (3, ...) int32 cell coords (floor)."""
     f32 = torch.float32
     origin = _col(config.origin, points.dim(), f32, points.device)
-    res = _col(config.resolution, points.dim(), f32, points.device)
-    return torch.floor((points - origin) / res).to(torch.int32)
+    inv = _col(inv_resolution(config).tolist(), points.dim(), f32,
+               points.device)
+    return torch.floor((points - origin) * inv).to(torch.int32)
 
 
 def cell_center(coords: torch.Tensor, config: FusionConfig) -> torch.Tensor:
@@ -52,6 +61,28 @@ def cell_center(coords: torch.Tensor, config: FusionConfig) -> torch.Tensor:
     res = _col(config.resolution, coords.dim(), f32, coords.device)
     half = (coords.to(f32) + 0.5).to(f64)
     return (res.to(f64) * half + origin.to(f64)).to(f32)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a*b + c`` of f32 tensors (broadcast), rounded once to f32, as
+    ``__fmaf_rn`` and XLA's contracted multiply-adds compute it.
+
+    The product is exact in f64; the sum is rounded to f64 with round-to-
+    odd (the TwoSum error decides the last bit), and a round-to-odd result
+    with at least two more bits than f32 rounds to f32 exactly as the
+    single rounding would, so no double-rounding case remains."""
+    f64 = torch.float64
+    p = a.to(f64) * b.to(f64)
+    c64 = c.to(f64)
+    t = p + c64
+    back = t - p
+    err = (p - (t - back)) + (c64 - back)
+    bits = t.view(torch.int64)
+    inexact_even = (err != 0) & ((bits & 1) == 0)
+    away = (err > 0) == (t > 0)            # the exact sum lies beyond |t|
+    bits = torch.where(inexact_even, bits + torch.where(away, 1, -1), bits)
+    return bits.view(f64).to(torch.float32)
 
 
 def valid_points(points: torch.Tensor, config: FusionConfig) -> torch.Tensor:

@@ -13,6 +13,14 @@ contract:
   ``test_cloud.pcd`` and ``meta.csv`` to ``output_dir``, then clears the
   grid.
 
+``model`` picks the device-side model family: ``"fusion"`` (the
+cylinder-filtered pipeline, ``FusionPipeline``) or ``"tsdf"`` (the
+TSDF-weighted family, ``models/tsdf.TsdfPipeline``; ``model_params`` feeds
+its ``TsdfConfig``: truncation, n_samples, min_weight, surface_band,
+batch_unique).  The TSDF family has no refine phase (its ``refine`` is a
+no-op); its export maps the surface onto the same PCD and CSV columns
+(tsdf.py:380-410).
+
 One worker thread pops frames from a bounded drop-oldest queue.  With
 ``batch_fill_wait > 0`` (replay sources that outrun the device) it waits
 up to that long for a full K-batch and integrates K frames at once; K is
@@ -37,6 +45,7 @@ import torch
 from ..config import FusionConfig
 from ..io import pcd
 from ..models.pipeline import FusionPipeline, refine_due
+from ..models.tsdf import TsdfConfig, TsdfPipeline
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
 
@@ -56,9 +65,16 @@ def batch_frames(config: FusionConfig) -> int:
 class FusionSession:
     def __init__(self, config: FusionConfig, device,
                  output_dir: str = ".", queue_depth: int = 100,
-                 final_refine: bool = True, batch_fill_wait: float = 0.0):
+                 final_refine: bool = True, batch_fill_wait: float = 0.0,
+                 model: str = "fusion", model_params: Dict = None):
         self.config = config.validate()
-        self.pipeline = FusionPipeline(config, device)
+        if model == "fusion":
+            self.pipeline = FusionPipeline(config, device)
+        elif model == "tsdf":
+            self.pipeline = TsdfPipeline(
+                TsdfConfig(base=config, **(model_params or {})), device)
+        else:
+            raise ValueError(f"unknown model {model!r}")
         self.output_dir = output_dir
         self.final_refine = final_refine
         self._kb = batch_frames(config) if batch_fill_wait > 0 else 1

@@ -16,8 +16,9 @@ import torch
 
 from hifi_fusion_tpu_torch import checks, kernels
 from hifi_fusion_tpu_torch.config import small_test_config
+from hifi_fusion_tpu_torch.models import tsdf
 from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
-from hifi_fusion_tpu_torch.ops import hashing, integrate, refine
+from hifi_fusion_tpu_torch.ops import hashing, integrate, refine, scatter
 from hifi_fusion_tpu_torch.utils.synthetic import camera_rays, make_depth_sweep
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +28,11 @@ CFG = small_test_config(refine_every=4, max_batch_frames=4,
 RAYS = camera_rays(96, 64, fx=120.0, fy=120.0)
 FRAMES = make_depth_sweep(CFG, 12, width=96, height=64, srays=RAYS, seed=9,
                           noise_sd=3e-4, camera_height=0.4)
+TCFG = tsdf.TsdfConfig(
+    base=small_test_config(refine_every=0, max_batch_frames=4,
+                           z_clip=(0.05, 10.0), capacity_log2=16,
+                           max_points=RAYS.shape[1]),
+    truncation=0.011, n_samples=5, min_weight=2.0)
 
 
 @pytest.fixture(scope="module")
@@ -125,3 +131,59 @@ def test_normal_fit_matches_plain(state):
     assert torch.equal(gk.normal_found, gp.normal_found)
     assert float((gk.normal - gp.normal).abs().max()) <= 1e-5
     assert float((nk - nplain).abs()[:, ok_k].max()) <= 1e-5
+
+
+def _same_words(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def tsdf_state(dev):
+    """A TSDF grid on the card after two K=4 batches, and the third
+    batch's inputs."""
+    pipe = tsdf.TsdfPipeline(TCFG, dev)
+    rays = pipe.put(RAYS)
+    grid = pipe.init()
+    for i in range(2):
+        pipe.step_batch_depth(grid, *_batch(pipe, i), rays)
+    return pipe, grid, rays, _batch(pipe, 2)
+
+
+def test_tsdf_lanes_bit_exact(tsdf_state):
+    pipe, grid, rays, b = tsdf_state
+    n0 = kernels.LAUNCHES["tsdf_lanes"]
+    got = tsdf.tsdf_lanes(*b, rays, TCFG)
+    assert kernels.LAUNCHES["tsdf_lanes"] == n0 + 1
+    want = tsdf.tsdf_lanes_plain(*b, rays, TCFG)
+    assert all(_same_words(g, w) for g, w in zip(got, want))
+    assert int((got[0] != tsdf.BIG).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 700, 1024, 1025, None])
+def test_segscan_bit_exact(tsdf_state, n):
+    """Every kind on the sorted sample lanes of a batch (n=None: all of
+    them, two-level), and on prefixes around the flat-ladder bound."""
+    pipe, grid, rays, b = tsdf_state
+    skey, vals = tsdf.tsdf_lanes(*b, rays, TCFG)
+    sid, order = torch.sort(skey, stable=True)
+    svals = vals[:, order][:, :n].contiguous()
+    starts = scatter.segment_starts(sid, sid != tsdf.BIG)[:n].contiguous()
+    words = svals.view(torch.int32)
+    for kind, v in (("add", svals), ("first", svals), ("first", words),
+                    ("or", words), ("add", svals[2])):
+        n0 = kernels.LAUNCHES["segscan"]
+        got = scatter.segment_reduce(v, starts, kind)
+        assert kernels.LAUNCHES["segscan"] == n0 + 1
+        assert _same_words(got, scatter.segment_reduce_plain(v, starts,
+                                                             kind)), kind
+
+
+def test_tsdf_surface_matches_plain(tsdf_state):
+    pipe, grid, rays, b = tsdf_state
+    cell, slots = tsdf.surface_cells(grid, TCFG)
+    assert cell.numel() > 100
+    got = tsdf.tsdf_surface(cell, slots, grid, TCFG)
+    want = tsdf.tsdf_surface_plain(cell, slots, grid, TCFG)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-6

@@ -1,7 +1,8 @@
 """The port's geometry and eigensolver against the JAX package's, on the
 same seeded numpy inputs: cell coords, validity, ids, centers and the
-sweeps' SE(3) transforms bit-exact; smallest eigenvectors within 1e-5 of
-the JAX solver's and of numpy.linalg.eigh (up to sign)."""
+sweeps' SE(3) transforms bit-exact (coords and centers as the JAX
+package's jitted programs compute them); smallest eigenvectors within 1e-5
+of the JAX solver's and of numpy.linalg.eigh (up to sign)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,11 +30,16 @@ def _points(n=4096):
     return p.astype(np.float32)
 
 
+# the JAX package computes cell coords inside jitted programs, where the
+# resolution is a constant and XLA multiplies by its folded reciprocal
+_jit_coords = jax.jit(lambda p: jgeo.cell_coords(p, JCFG))
+
+
 def test_cells_bit_exact():
     p = _points()
     tp, jp = torch.from_numpy(p), jnp.asarray(p)
     tc = geometry.cell_coords(tp, CFG)
-    jc = jgeo.cell_coords(jp, JCFG)
+    jc = _jit_coords(jp)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(geometry.valid_points(tp, CFG).numpy(),
                                   np.asarray(jgeo.valid_points(jp, JCFG)))
@@ -53,6 +59,25 @@ def test_cells_bit_exact():
     np.testing.assert_array_equal(
         geometry.center_of_ids(vid, CFG).numpy(),
         np.asarray(jit_center(jnp.asarray(ids[tv]))))
+
+
+def test_cell_coords_on_cell_faces_match_jit():
+    """Points a few ulps from cell faces, where floor((p - o) / res) and
+    floor((p - o) * (1 / res)) differ: the port takes the JAX package's
+    jitted (reciprocal) side on every one."""
+    o = np.asarray(CFG.origin, np.float32)[:, None]
+    r = np.asarray(CFG.resolution, np.float32)[:, None]
+    faces = (o + r * np.arange(CFG.dims[0], dtype=np.float32)[None]
+             ).astype(np.float32)
+    p = np.concatenate([faces + np.spacing(faces) * u
+                        for u in range(-4, 5)], axis=1).astype(np.float32)
+    true = np.floor((p - o) / r)
+    recip = np.floor((p - o) * (np.float32(1.0) / r))
+    assert (true != recip).sum() > 0, "no face point tells the forms apart"
+    got = geometry.cell_coords(torch.from_numpy(p), CFG).numpy()
+    np.testing.assert_array_equal(got, np.asarray(_jit_coords(
+        jnp.asarray(p))))
+    np.testing.assert_array_equal(got, recip.astype(np.int32))
 
 
 @pytest.mark.parametrize("axis_aligned", [True, False])

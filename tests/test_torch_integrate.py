@@ -76,7 +76,7 @@ def test_frontend_bit_exact_vs_jax():
         rays=jnp.asarray(RAYS))
     wpl = jax.vmap(jgeo.transform_points)(pc, jnp.asarray(poses)) \
         .transpose(1, 0, 2)
-    coords = jgeo.cell_coords(wpl, JCFG)
+    coords = jax.jit(lambda w: jgeo.cell_coords(w, JCFG))(wpl)
     zmin, zmax = JCFG.z_clip
     valid = (mask & (pc[:, 2] > zmin) & (pc[:, 2] < zmax)
              & jgeo.valid_points(wpl, JCFG) & jgeo.valid_coords(coords, JCFG))

@@ -13,9 +13,13 @@ and prints no result line):
    (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
    register / spill report;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its main path gives it, timed with CUDA events in the order plain,
-   kernel, kernel, plain: K1-K4 at the fusion bench config, T1-T3 at the
-   TSDF config 5;
+   its main path gives it, timed on the card (``device_ms``) in the order
+   plain, kernel, kernel, plain: K1-K4 at the fusion bench config, T1-T3
+   at the TSDF config 5; beside each time the kernel's bound (the least
+   time the card could take for the same inputs,
+   ``hifi_fusion_tpu_torch/bounds.py``) and the share of it reached, and
+   for T1 the time of one PyTorch call that computes its segment totals
+   (``torch.segment_reduce``), a yardstick the port never calls;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, then ``process()``; checks overflow counters, voxel count,
@@ -52,6 +56,7 @@ FRAMES = 96          # replay length (bench.py runs 100)
 ARC_FRAMES = 100     # pose spacing of bench.py's 100-frame sweep
 WIDTH, HEIGHT, FX = 640, 480, 900.0
 REPS = 5             # timed calls per slot of plain, kernel, kernel, plain
+SLEEP_CYCLES = 400_000   # ~0.2 ms of card time ahead of each timed call
 
 KERNELS = {
     "depth_frontend": ("hifi_fusion_tpu_torch/csrc/depth_frontend.cu",
@@ -116,25 +121,45 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(torch, fn, setup, reps=REPS) -> float:
+    """Median device ms of ``fn(*setup())`` over ``reps`` calls: CUDA events
+    around each call, with a sleep kernel ahead of the start event so that
+    the card is still busy while the host enqueues the call (the events
+    time the card's work, not the host's launch overhead)."""
+    times = []
+    for _ in range(reps):
+        args = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def time_pair(torch, kernel_fn, plain_fn, setup):
-    """Median ms of ``kernel_fn(*setup())`` and ``plain_fn(*setup())``,
-    CUDA events around the call only, in the order plain, kernel, kernel,
-    plain."""
+    """``device_ms`` of the kernel and of the plain version, REPS calls in
+    each slot of the order plain, kernel, kernel, plain; the medians of the
+    slots' medians."""
     times = {"kernel": [], "plain": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         fn = kernel_fn if name == "kernel" else plain_fn
-        for _ in range(REPS):
-            args = setup()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(*args)
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end))
+        times[name].append(device_ms(torch, fn, setup))
     return statistics.median(times["kernel"]), statistics.median(
         times["plain"])
+
+
+def timed(max_abs_err, ms, plain_ms, bound, library_ms=None) -> dict:
+    """A kernel's phase-3 entry: its error and times, and its bound
+    (``bounds.bound``) with the share of it reached."""
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                share=bound["bound_ms"] / ms, library_ms=library_ms,
+                bytes=bound["bytes"])
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -150,8 +175,8 @@ def max_err(pairs) -> float:
 
 def check_kernels(torch, cfg, frames, rays, dev):
     """Phase 3: every kernel against its plain version at main-path
-    shapes.  Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
-    from hifi_fusion_tpu_torch import checks
+    shapes.  Returns {name: ``timed`` entry}."""
+    from hifi_fusion_tpu_torch import bounds, checks
     from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
     from hifi_fusion_tpu_torch.ops import hashing, integrate, refine
     pipe = FusionPipeline(cfg, dev)
@@ -175,7 +200,8 @@ def check_kernels(torch, cfg, frames, rays, dev):
     ms, pms = time_pair(
         torch, lambda: integrate.depth_frontend(*b0, rays, cfg),
         lambda: integrate.depth_frontend_plain(*b0, rays, cfg), tuple)
-    res["depth_frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    res["depth_frontend"] = timed(err, ms, pms,
+                                  bounds.depth_frontend(*b0[0].shape))
 
     # a grid with normals and dependants: two batches, a refine after each
     grid = pipe.init()
@@ -206,7 +232,9 @@ def check_kernels(torch, cfg, frames, rays, dev):
     ms, pms = time_pair(
         torch, hashing.lookup_or_insert, hashing.insert_plain,
         lambda: (grid.key.clone(), uids, cfg.max_probes, cfg.capacity))
-    res["hash_insert"] = dict(max_abs_err=float(bad), ms=ms, plain_ms=pms)
+    n_new = int((kk != grid.key).sum())
+    res["hash_insert"] = timed(float(bad), ms, pms,
+                               bounds.hash_insert(uids.numel(), n_new))
 
     # K3: the third batch's points through the grid's dependants
     slot_pt = sk[run].contiguous()
@@ -221,14 +249,18 @@ def check_kernels(torch, cfg, frames, rays, dev):
     ok, err = checks.cyl_stats_error(gk.cyl_stats.cpu().numpy(),
                                      gp.cyl_stats.cpu().numpy(),
                                      cfg.cylinder_radius)
-    hits = float((gk.cyl_stats.view(-1, 5)[:, 4]
-                  - grid.cyl_stats.view(-1, 5)[:, 4]).sum())
+    added = (gk.cyl_stats.view(-1, 5)[:, 4]
+             - grid.cyl_stats.view(-1, 5)[:, 4])
+    hits = float(added.sum())
     if not ok or hits <= 0:
         raise AssertionError(f"dep_stream: ok={ok} max err {err}, "
                              f"{hits} new hits")
+    counts = bounds.dep_stream_counts(slot_pt, grid.dep, grid.dep_count,
+                                      cfg.max_dependants, added)
+    log(f"phase 3: dep_stream: {counts}, {hits:.0f} hits")
     ms, pms = time_pair(torch, integrate.dep_stream,
                         integrate.dep_stream_plain, stream_grid)
-    res["dep_stream"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    res["dep_stream"] = timed(err, ms, pms, bounds.dep_stream(**counts))
 
     # K4: the candidates after the third batch
     pipe.step_batch_depth(grid, *b2, rays)
@@ -252,14 +284,18 @@ def check_kernels(torch, cfg, frames, rays, dev):
                              f"({int(okk.sum())} gated)")
     ms, pms = time_pair(torch, refine.normal_fit, refine.normal_fit_plain,
                         fit_grid)
-    res["normal_fit"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    words = bounds.normal_fit_words(grid.key[cand.long()], cfg.dims,
+                                    cfg.k_neighborhood, grid.occ_bits.numel())
+    res["normal_fit"] = timed(err, ms, pms, bounds.normal_fit(
+        cand.numel(), int(okk.sum()), words))
     return res
 
 
 def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     """Phase 3, TSDF config 5: T2 and T1 on the sweep's third K=8 batch
     (27.0 M sample lanes), T3 on the surface of a grid after two batches.
-    Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+    Returns {name: ``timed`` entry}."""
+    from hifi_fusion_tpu_torch import bounds
     from hifi_fusion_tpu_torch.models import tsdf
     from hifi_fusion_tpu_torch.ops import scatter
     pipe = tsdf.TsdfPipeline(tcfg, dev)
@@ -284,7 +320,8 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     ms, pms = time_pair(
         torch, lambda: tsdf.tsdf_lanes(*b2, rays, tcfg),
         lambda: tsdf.tsdf_lanes_plain(*b2, rays, tcfg), tuple)
-    res["tsdf_lanes"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    res["tsdf_lanes"] = timed(err, ms, pms, bounds.tsdf_lanes(
+        *b2[0].shape, tcfg.n_samples))
 
     # T1: bit-exact for every kind, on the batch's sorted lanes and on a
     # flat-ladder prefix (n <= 1024)
@@ -311,7 +348,9 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     ms, pms = time_pair(torch, scatter.segment_reduce,
                         scatter.segment_reduce_plain,
                         lambda: (svals, starts, "add"))
-    res["segscan"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    lib_ms = segscan_yardstick(torch, scatter, tsdf, sid, svals, starts)
+    res["segscan"] = timed(err, ms, pms, bounds.segscan(*svals.shape),
+                           lib_ms)
     del sid, svals, words, starts, cases
 
     # T3: a grid after two batches; exact expected, gated at 1e-6 since
@@ -332,8 +371,33 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
         f"bit-exact {exact}")
     ms, pms = time_pair(torch, tsdf.tsdf_surface, tsdf.tsdf_surface_plain,
                         lambda: (cell, slots, grid, tcfg))
-    res["tsdf_surface"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    res["tsdf_surface"] = timed(err, ms, pms,
+                                bounds.tsdf_surface(cell.numel()))
     return res
+
+
+def segscan_yardstick(torch, scatter, tsdf, sid, svals, starts) -> float:
+    """ms of ``torch.segment_reduce`` summing the valid sorted lanes of a
+    batch into one row per segment, the totals the TSDF path reads at the
+    end lanes; checked against T1's end lanes at rtol 1e-5 of the terms'
+    magnitudes (it adds in another order).  The transpose is made outside
+    the timed window."""
+    valid = sid != tsdf.BIG
+    nv = int(valid.sum())
+    first = torch.nonzero(starts).squeeze(1)
+    lengths = torch.diff(first, append=first.new_full((1,), nv))
+    data = svals[:, :nv].t().contiguous()
+    got = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+    mag = torch.segment_reduce(data.abs(), "sum", lengths=lengths, axis=0)
+    ends = scatter.segment_ends(sid, valid)
+    want = scatter.segment_reduce(svals, starts, "add")[:, ends].t()
+    err = float(((got - want).abs() - 1e-5 * mag).max())
+    if got.shape != want.shape or err > 0:
+        raise AssertionError(f"segment_reduce yardstick differs from T1: "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"excess {err}")
+    return device_ms(torch, lambda: torch.segment_reduce(
+        data, "sum", lengths=lengths, axis=0), tuple, reps=2 * REPS)
 
 
 def read_pcd(path):
@@ -488,8 +552,12 @@ def main() -> int:
     kres.update(check_tsdf_kernels(torch, tcfg, frames, rays,
                                    torch.device("cuda")))
     for name, r in kres.items():
+        lib = ("" if r["library_ms"] is None
+               else f", library {r['library_ms']:.4f} ms")
         log(f"phase 3: {name}: max_abs_err {r['max_abs_err']:.3g}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({r['bytes']} B), share {r['share']:.3f} ({card})")
     torch.cuda.empty_cache()
 
     # -- phase 4 -------------------------------------------------------

@@ -1,0 +1,133 @@
+"""The least time one H100 could take for each hand kernel's work.
+
+A kernel's bound is the larger of two times: the bytes its function must
+move over the card's memory rate, and the operations it must do over the
+card's peak rate for their type.  Bytes count each input word the
+function needs read once and each output word written once, at the
+shapes and counts of the inputs it was given, whatever the kernel reads
+again; where the work depends on the data (owners with hits, ids that
+are new), the counts are this call's.  Operations are f32 operations
+(the card's 67 TFLOP/s outside the tensor cores); integer hashing and
+index arithmetic are not counted.  ``chip_smoke.py`` computes every bound
+from the inputs its phase 3 times and prints it beside the kernel's time
+(``share`` = bound / time).
+
+Peak rates: NVIDIA's data sheet for the H100 SXM at its 700 W limit (a
+card set below it runs slower under load; the smoke prints the limit).
+"""
+
+from __future__ import annotations
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
+F32_OPS_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
+
+
+def bound(nbytes: int, ops: int = 0) -> dict:
+    """``{"bytes", "ops", "bound_ms", "bound_by"}`` of a kernel call that
+    must move ``nbytes`` and do ``ops`` f32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def depth_frontend(K: int, N: int) -> dict:
+    """K1 on K frames of N pixels: u16 depth and rgb565 (4 B a pixel), the
+    (3,N) f32 rays, K counts and 4x4 poses in; world xyz, id and rgb (28 B
+    a pixel) out.  ~30 f32 operations a pixel (unproject, transform, cell
+    coordinates)."""
+    px = K * N
+    return bound(px * 4 + 12 * N + K * (4 + 64) + px * 28, 30 * px)
+
+
+def hash_insert(U: int, n_new: int) -> dict:
+    """K2 on U distinct ids of which ``n_new`` were not in the table: each
+    id read, one table word read, the new ids' words written, U slots and
+    the failure count written."""
+    return bound(U * 4 + U * 4 + n_new * 4 + U * 4 + 4)
+
+
+def dep_stream(n: int, n_cells: int, n_dep_words: int, n_owners: int,
+               n_hit_owners: int, n_pairs: int) -> dict:
+    """K3 on n point lanes: each lane's xyz and slot (16 B); per cell its
+    dep_count and its ``min(dep_count, D)`` owner words; per distinct
+    owner its key and normal (16 B); per owner with a hit its 5 cyl_stats
+    sums read and written (40 B).  ~20 f32 operations per (point, owner)
+    pair (``n_pairs``) for the cylinder gate."""
+    return bound(n * 16 + n_cells * 4 + n_dep_words * 4 + n_owners * 16
+                 + n_hit_owners * 40, 20 * n_pairs)
+
+
+def dep_stream_counts(slots: torch.Tensor, dep: torch.Tensor,
+                      dep_count: torch.Tensor, D: int,
+                      hits_added: torch.Tensor) -> dict:
+    """The counts of ``dep_stream`` for (n,) i32 ``slots`` sorted by cell
+    (-1 = skip), the grid's flat ``dep`` and ``dep_count``, and the (C,)
+    hits the call added to each owner."""
+    n = int(slots.numel())
+    cells, run = torch.unique_consecutive(slots, return_counts=True)
+    placed = cells >= 0
+    cells, run = cells[placed].long(), run[placed]
+    cnt = dep_count[cells].clamp(max=D).long()
+    owners = dep.view(-1, D)[cells]
+    listed = torch.arange(D, device=slots.device)[None, :] < cnt[:, None]
+    valid = listed & (owners >= 0)
+    return {"n": n, "n_cells": int(cells.numel()),
+            "n_dep_words": int(cnt.sum()),
+            "n_owners": int(torch.unique(owners[valid]).numel()),
+            "n_hit_owners": int((hits_added > 0).sum()),
+            "n_pairs": int((valid.sum(1) * run).sum())}
+
+
+def normal_fit(U: int, n_gated: int, n_words: int) -> dict:
+    """K4 on U candidates: each candidate's slot, key and viewpoint in and
+    its oriented normal and gate out (33 B); the gated ones' normal and
+    flag written (13 B); ``n_words`` distinct 4 B bitmap words under the
+    candidates' windows.  ~150 f32 operations a candidate for the
+    eigenpair and the orientation (the window's moment sums, which depend
+    on its occupancy, are not counted)."""
+    return bound(U * 33 + n_gated * 13 + n_words * 4, 150 * U)
+
+
+def normal_fit_words(ids: torch.Tensor, dims, k: int, W: int) -> int:
+    """The distinct bitmap words K4 reads for candidates with cell ids
+    ``ids``: two words per in-bounds (dx, dy) column of the (2k+1)^2
+    window, as the kernel addresses them."""
+    ids = ids.long()
+    dz = dims[2]
+    cz, cy, cx = ids % dz, (ids // dz) % dims[1], (ids // dz) // dims[1]
+    r = torch.arange(-k, k + 1, device=ids.device)
+    nx = cx[:, None, None] + r[None, :, None]
+    ny = cy[:, None, None] + r[None, None, :]
+    ok = (nx >= 0) & (nx < dims[0]) & (ny >= 0) & (ny < dims[1])
+    col = (nx * dims[1] + ny) * dz + cz[:, None, None]
+    w0 = ((col - k).clamp(min=0) >> 5).clamp(max=W - 1)[ok]
+    words = torch.cat([w0, (w0 + 1)[w0 + 1 < W]])
+    return int(torch.unique(words).numel())
+
+
+def segscan(k: int, n: int) -> dict:
+    """T1 on (k, n) words: k words and a 1 B flag in, k words out, a lane
+    (49 B at k = 6); one operation a lane and channel, the least any scan
+    needs (the ladder does up to 9)."""
+    return bound(n * (8 * k + 1), k * n)
+
+
+def tsdf_lanes(K: int, N: int, S: int) -> dict:
+    """T2 on K frames of N pixels and S samples a pixel: 4 B of wire a
+    pixel, the rays, counts and poses in; an i32 key and six f32 values
+    (28 B) a sample lane out.  ~40 f32 operations a pixel and ~12 a
+    sample."""
+    return bound(K * N * 4 + 12 * N + K * (4 + 64) + K * N * S * 28,
+                 K * N * (40 + 12 * S))
+
+
+def tsdf_surface(E: int) -> dict:
+    """T3 on E surface cells: the cell id and slot, its six vstats words,
+    and per face neighbour one key word and two vstats words (104 B) in;
+    centroid, normal, tsdf, weight and rgb (44 B) out.  ~60 f32
+    operations a cell."""
+    return bound(E * (104 + 44), 60 * E)

@@ -24,6 +24,8 @@ Tolerances and their reasons:
   port reproduces the JAX package's sample arithmetic (XLA's fused
   multiply-adds included) and its segmented-scan association order, so
   every per-cell sum is the same f32 value; any difference is a fault.
+* segmented scans (``segscan_case`` makes adversarial inputs): bit for bit
+  against the JAX package (CPU) or the plain version (card).
 * TSDF extracts (``tsdf_extract_problems``): the cell set and the weights
   exactly (they follow from the grid); the TSDF value within 1e-6, the
   centroid within 1e-6 m and the normal within 1e-5 (the tolerances the
@@ -120,6 +122,64 @@ def by_cell(fields: dict, config) -> dict:
                  "reclaimed", "frames"):
         out[name] = int(fields[name])
     return out
+
+
+SEGSCAN_PATTERNS = ("long_runs", "empty_blocks", "late_first", "ragged_tail",
+                    "no_flags")
+
+
+def segscan_case(pattern: str, kind: str, dtype, k: int, n: int,
+                 seed: int) -> tuple:
+    """Numpy inputs ``(values (k, n), starts (n,) bool)`` for the segmented
+    scan whose flags stress the two-level structure (512-lane blocks):
+
+    * ``long_runs``: every segment spans 2-6 blocks;
+    * ``empty_blocks``: short runs broken by gaps of 2-5 whole blocks
+      without a flag;
+    * ``late_first``: no flag in the first third of the lanes;
+    * ``ragged_tail``: short runs, then one run from the middle of the
+      second-last block through the ragged last one, whose last lane is
+      flagged alone;
+    * ``no_flags``: one unflagged stretch over everything.
+
+    Values: ``or`` one bit a lane (30% zero); ``int32`` random words;
+    ``float32`` normal with 20% -0.0 and 10% +0.0, so that the literal
+    zero combines show."""
+    rng = np.random.default_rng(seed)
+    starts = np.zeros(n, bool)
+    if pattern in ("long_runs", "empty_blocks", "ragged_tail"):
+        i = 0
+        while i < n:
+            starts[i] = True
+            if pattern == "long_runs":
+                i += int(rng.integers(2 * 512, 6 * 512))
+            elif pattern == "empty_blocks" and rng.random() < 0.1:
+                i += int(rng.integers(2 * 512 + 1, 5 * 512))
+            else:
+                i += int(rng.integers(1, 41))
+        if pattern == "ragged_tail":
+            tail = (n // 512 - 1) * 512 + 256
+            starts[tail:] = False
+            starts[tail] = True
+            starts[n - 1] = True
+    elif pattern == "late_first":
+        i = n // 3
+        while i < n:
+            starts[i] = True
+            i += int(rng.integers(1, 41))
+    elif pattern != "no_flags":
+        raise ValueError(f"unknown pattern {pattern!r}")
+    shape = (k, n)
+    if kind == "or":
+        vals = (np.int64(1) << rng.integers(0, 31, shape)).astype(np.int32)
+        vals[:, rng.random(n) < 0.3] = 0
+    elif np.dtype(dtype) == np.int32:
+        vals = rng.integers(-2 ** 31, 2 ** 31 - 1, shape, dtype=np.int32)
+    else:
+        vals = rng.normal(0.0, 3.0, shape).astype(np.float32)
+        vals[:, rng.random(n) < 0.2] = np.float32(-0.0)
+        vals[:, rng.random(n) < 0.1] = 0.0
+    return vals, starts
 
 
 TSDF_TOL = {"tsdf": 1e-6, "centroid": 1e-6, "normal": 1e-5}

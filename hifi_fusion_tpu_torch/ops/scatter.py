@@ -157,9 +157,9 @@ def segment_reduce(values: torch.Tensor, starts: torch.Tensor,
         return out
     nb = -(-n // BS) if n > 2 * BS else 1
     # block summaries and their ping-pong partner; per block: first
-    # flagged lane, flag masks, two flag ping-pong rows
+    # flagged lane and two summary-flag ping-pong rows
     summ = torch.empty((2, k, nb), dtype=torch.int32, device=dev)
-    aux = torch.empty((4, nb), dtype=torch.int32, device=dev)
+    aux = torch.empty((3, nb), dtype=torch.int32, device=dev)
     lib = kernels.library()
     kernels.check(lib.launch_segscan(
         values.data_ptr(), starts.data_ptr(), k, n, KINDS[kind],

@@ -1,0 +1,81 @@
+"""The byte and operation counts of ``hifi_fusion_tpu_torch/bounds.py``
+against counts made by hand, at two shapes each, and the count helpers on
+small hand-built inputs."""
+
+import pytest
+import torch
+
+from hifi_fusion_tpu_torch import bounds
+
+
+@pytest.mark.parametrize("k,n,per_lane", [(6, 27_033_600, 49), (1, 1000, 9)])
+def test_segscan_bytes(k, n, per_lane):
+    b = bounds.segscan(k, n)
+    assert b["bytes"] == per_lane * n and b["ops"] == k * n
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(per_lane * n / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("K,N", [(8, 307_200), (2, 100)])
+def test_depth_frontend_bytes(K, N):
+    # u16 depth + rgb565 in, world xyz + id + rgb out, per pixel; rays once,
+    # and per frame an i32 count and a 4x4 f32 pose
+    want = K * N * (2 + 2 + 12 + 4 + 12) + N * 12 + K * (4 + 64)
+    assert bounds.depth_frontend(K, N)["bytes"] == want
+
+
+@pytest.mark.parametrize("K,N,S", [(8, 307_200, 11), (1, 10, 3)])
+def test_tsdf_lanes_bytes(K, N, S):
+    want = K * N * 4 + N * 12 + K * 68 + K * N * S * (4 + 6 * 4)
+    b = bounds.tsdf_lanes(K, N, S)
+    assert b["bytes"] == want and b["ops"] == K * N * (40 + 12 * S)
+
+
+@pytest.mark.parametrize("U,n_new", [(1000, 0), (60_000, 25_000)])
+def test_hash_insert_bytes(U, n_new):
+    assert bounds.hash_insert(U, n_new)["bytes"] == 12 * U + 4 * n_new + 4
+
+
+@pytest.mark.parametrize("E", [1, 208_326])
+def test_tsdf_surface_bytes(E):
+    assert bounds.tsdf_surface(E)["bytes"] == E * 148
+
+
+def test_bound_by_operations():
+    # 1 B and 67e9 operations: 1 ms of f32 work, ~3e-10 ms of bytes
+    b = bounds.bound(1, int(67e9))
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(1.0)
+
+
+def test_dep_stream_counts_by_hand():
+    D = 3
+    # slots 0..3: cell 2 lists owners (0, -1, 1) with dep_count 5 (> D),
+    # cell 3 lists owner 0 with dep_count 1; 4 lanes of cell 2, 2 unplaced
+    # lanes, 3 lanes of cell 3
+    dep = torch.full((4 * D,), -1, dtype=torch.int32)
+    dep[2 * D:3 * D] = torch.tensor([0, -1, 1], dtype=torch.int32)
+    dep[3 * D] = 0
+    dep_count = torch.tensor([0, 0, 5, 1], dtype=torch.int32)
+    slots = torch.tensor([2, 2, 2, 2, -1, -1, 3, 3, 3], dtype=torch.int32)
+    hits = torch.tensor([7.0, 0.0, 0.0, 0.0])
+    c = bounds.dep_stream_counts(slots, dep, dep_count, D, hits)
+    assert c == {"n": 9, "n_cells": 2, "n_dep_words": 3 + 1, "n_owners": 2,
+                 "n_hit_owners": 1, "n_pairs": 4 * 2 + 3 * 1}
+    b = bounds.dep_stream(**c)
+    assert b["bytes"] == 9 * 16 + 2 * 4 + 4 * 4 + 2 * 16 + 1 * 40
+    assert b["ops"] == 20 * 11
+
+
+@pytest.mark.parametrize("ids,words", [
+    # one cell at (0, 0, 40) of a 4x4x64 grid, k=1: in-bounds columns
+    # (x, y) in {0,1}^2 start at bit (x*4 + y)*64 + 39, in words 1, 3, 9,
+    # 11, each with its next word
+    ([40], {1, 2, 3, 4, 9, 10, 11, 12}),
+    # two neighbours along z share all their words
+    ([40, 41], {1, 2, 3, 4, 9, 10, 11, 12}),
+])
+def test_normal_fit_words_by_hand(ids, words):
+    got = bounds.normal_fit_words(torch.tensor(ids, dtype=torch.int32),
+                                  (4, 4, 64), 1, 32)
+    assert got == len(words)

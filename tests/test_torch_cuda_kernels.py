@@ -16,6 +16,7 @@ import torch
 
 from hifi_fusion_tpu_torch import checks, kernels
 from hifi_fusion_tpu_torch.config import small_test_config
+from hifi_fusion_tpu_torch.grid import make_grid
 from hifi_fusion_tpu_torch.models import tsdf
 from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
 from hifi_fusion_tpu_torch.ops import hashing, integrate, refine, scatter
@@ -114,6 +115,90 @@ def test_dep_stream_matches_plain(state):
     assert float(added.sum()) > 0
 
 
+# owners of the adversarial K3 grid; the cells streamed through them
+K3_CFG = small_test_config(cylinder_radius=0.004)
+K3_OWNERS, K3_CELLS = 300, 400
+# run lengths around the kernel's 32-lane warps, 128-lane chunks and
+# 2048-lane CTAs
+K3_RUNS = (1, 3, 31, 32, 33, 40, 97, 127, 128, 129, 300, 1000, 2047, 2049,
+           2100, 5)
+
+
+def _k3_inputs(dev, seed=3):
+    """A grid whose point cells list owners with -1 holes and dep_count
+    above D, and (3, n) points sorted by cell: runs of 1-2,100 points
+    (cells over warp, chunk and CTA boundaries), broken by runs of
+    unplaced (-1) lanes, each point near one of its cell's owners."""
+    cfg, D = K3_CFG, K3_CFG.max_dependants
+    rng = np.random.default_rng(seed)
+    grid = make_grid(cfg, dev)
+    n_ids = int(np.prod(cfg.dims))
+    ids = rng.choice(n_ids, K3_OWNERS + K3_CELLS, replace=False)
+    key = np.full(cfg.capacity, -1, np.int32)
+    key[:ids.size] = ids
+    nrm = rng.normal(size=(K3_OWNERS, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    normal = np.zeros((cfg.capacity, 3), np.float32)
+    normal[:K3_OWNERS] = nrm
+    dep = np.full((cfg.capacity, D), -1, np.int32)
+    dep_count = np.zeros(cfg.capacity, np.int32)
+    cells = K3_OWNERS + np.arange(K3_CELLS)
+    dep[cells] = rng.integers(0, K3_OWNERS, (K3_CELLS, D))
+    dep[cells] = np.where(rng.random((K3_CELLS, D)) < 0.2, -1, dep[cells])
+    dep_count[cells] = rng.integers(0, D + 5, K3_CELLS)
+    coords = np.stack([ids // (cfg.dims[1] * cfg.dims[2]),
+                       ids // cfg.dims[2] % cfg.dims[1], ids % cfg.dims[2]],
+                      axis=1)
+    center = (np.asarray(cfg.origin) + np.asarray(cfg.resolution)
+              * (coords + 0.5))
+    pts, slots = [], []
+    for i, s in enumerate(cells):
+        if i % 7 == 3:                          # a run of unplaced lanes
+            m = int(rng.integers(1, 300))
+            pts.append(rng.uniform(-0.3, 0.3, (m, 3)))
+            slots.append(np.full(m, -1))
+        m = K3_RUNS[i % len(K3_RUNS)]
+        listed = dep[s, :min(dep_count[s], D)]
+        listed = listed[listed >= 0]
+        o = rng.choice(listed, m) if listed.size else rng.integers(
+            0, K3_OWNERS, m)
+        u = rng.normal(size=(m, 3))
+        u -= np.sum(u * nrm[o], axis=1, keepdims=True) * nrm[o]
+        u /= np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-12)
+        p = (center[o] + rng.uniform(-0.01, 0.01, (m, 1)) * nrm[o]
+             + rng.uniform(0.0, 0.006, (m, 1)) * u)
+        pts.append(p)
+        slots.append(np.full(m, s))
+    put = lambda a, t: torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
+    grid = dataclasses.replace(
+        grid, key=put(key, np.int32), normal=put(normal.reshape(-1),
+                                                 np.float32),
+        dep=put(dep.reshape(-1), np.int32),
+        dep_count=put(dep_count, np.int32))
+    return (put(np.concatenate(pts).T, np.float32),
+            put(np.concatenate(slots), np.int32), grid)
+
+
+def test_dep_stream_adversarial_runs(dev):
+    """K3 against its plain version on long cells, cells over warp, chunk
+    and CTA boundaries, -1 owner holes and dep_count > D: hits exact, the
+    sums within ``checks.cyl_stats_error``."""
+    pts, slots, grid = _k3_inputs(dev)
+    assert pts.shape[1] > 40000
+    gk = dataclasses.replace(grid, cyl_stats=grid.cyl_stats.clone())
+    gp = dataclasses.replace(grid, cyl_stats=grid.cyl_stats.clone())
+    n0 = kernels.LAUNCHES["dep_stream"]
+    integrate.dep_stream(pts, slots, gk, K3_CFG)
+    assert kernels.LAUNCHES["dep_stream"] == n0 + 1
+    integrate.dep_stream_plain(pts, slots, gp, K3_CFG)
+    ok, err = checks.cyl_stats_error(gk.cyl_stats.cpu().numpy(),
+                                     gp.cyl_stats.cpu().numpy(),
+                                     K3_CFG.cylinder_radius)
+    assert ok, err
+    hits = gp.cyl_stats.view(-1, 5)[:, 4]
+    assert float(hits.sum()) > 10000 and int((hits > 0).sum()) > 100
+
+
 def test_normal_fit_matches_plain(state):
     pipe, grid, rays, b = state
     g = dataclasses.replace(grid, **{f.name: getattr(grid, f.name).clone()
@@ -160,18 +245,42 @@ def test_tsdf_lanes_bit_exact(tsdf_state):
     assert int((got[0] != tsdf.BIG).sum()) > 0
 
 
-@pytest.mark.parametrize("n", [1, 700, 1024, 1025, None])
+# > 2^11 blocks of 512 (12 summary steps), not a multiple of 512
+ADV_N = 2149 * 512 - 475
+
+
+@pytest.mark.parametrize("n", [1, 700, 1024, 1025, None,
+                               *checks.SEGSCAN_PATTERNS])
 def test_segscan_bit_exact(tsdf_state, n):
     """Every kind on the sorted sample lanes of a batch (n=None: all of
-    them, two-level), and on prefixes around the flat-ladder bound."""
+    them, two-level), on prefixes around the flat-ladder bound, and on
+    the adversarial flag patterns of ``checks.segscan_case`` at ADV_N
+    lanes (n names the pattern)."""
     pipe, grid, rays, b = tsdf_state
-    skey, vals = tsdf.tsdf_lanes(*b, rays, TCFG)
-    sid, order = torch.sort(skey, stable=True)
-    svals = vals[:, order][:, :n].contiguous()
-    starts = scatter.segment_starts(sid, sid != tsdf.BIG)[:n].contiguous()
-    words = svals.view(torch.int32)
-    for kind, v in (("add", svals), ("first", svals), ("first", words),
-                    ("or", words), ("add", svals[2])):
+    if isinstance(n, str):
+        cases = []
+        # k = 8 and 13: block-pass CTAs of 8 and 13 warps, one a channel
+        for kind, dtype, k in (("add", np.float32, 6),
+                               ("first", np.float32, 2),
+                               ("first", np.int32, 1), ("or", np.int32, 3),
+                               ("first", np.int32, 8),
+                               ("add", np.float32, 13)):
+            vals, flags = checks.segscan_case(n, kind, dtype, k, ADV_N,
+                                              seed=k)
+            v = torch.from_numpy(vals).to(pipe.device)
+            cases.append((kind, v, torch.from_numpy(flags).to(pipe.device)))
+        cases.append(("add", cases[0][1][2].contiguous(), cases[0][2]))
+    else:
+        skey, vals = tsdf.tsdf_lanes(*b, rays, TCFG)
+        sid, order = torch.sort(skey, stable=True)
+        svals = vals[:, order][:, :n].contiguous()
+        starts = scatter.segment_starts(sid, sid != tsdf.BIG)[:n] \
+            .contiguous()
+        words = svals.view(torch.int32)
+        cases = [(kind, v, starts) for kind, v in (
+            ("add", svals), ("first", svals), ("first", words),
+            ("or", words), ("add", svals[2]))]
+    for kind, v, starts in cases:
         n0 = kernels.LAUNCHES["segscan"]
         got = scatter.segment_reduce(v, starts, kind)
         assert kernels.LAUNCHES["segscan"] == n0 + 1

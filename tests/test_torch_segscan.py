@@ -1,7 +1,8 @@
 """The port's segmented scan (ops/scatter.py, the plain version of kernel
 T1) against the JAX package's ``segment_reduce``: bit-identical for every
 kind, on flat (n <= 1024) and two-level (blocked, padded) sizes, with
-flags that leave an empty run before the first segment.  Inputs are made
+flags that leave an empty run before the first segment, and on the
+adversarial flag patterns of ``checks.segscan_case``.  Inputs are made
 with numpy from a seed and handed to both packages."""
 
 import functools
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from hifi_fusion_tpu.ops import scatter as jscatter
+from hifi_fusion_tpu_torch import checks
 from hifi_fusion_tpu_torch.ops import scatter
 
 JOPS = {"add": jnp.add, "first": lambda a, b: a, "or": jnp.bitwise_or}
@@ -63,6 +65,24 @@ def _both(kind, vals, starts, one_d):
     ("first", np.float32, 2), ("first", np.int32, 1), ("or", np.int32, 3)])
 def test_segment_reduce_bit_identical(kind, dtype, k, n):
     vals, starts = _inputs(kind, dtype, k, n, seed=n * 7 + k)
+    got, want = _both(kind, vals, starts, one_d=(k == 1))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+# n not a multiple of 512 (the last block is ragged), 39 blocks
+ADV_N = 38 * 512 + 481
+
+
+@pytest.mark.parametrize("pattern", checks.SEGSCAN_PATTERNS)
+@pytest.mark.parametrize("kind,dtype,k", [
+    ("add", np.float32, 6), ("first", np.float32, 2), ("first", np.int32, 1),
+    ("or", np.int32, 3)])
+def test_segment_reduce_adversarial_flags(pattern, kind, dtype, k):
+    """Flag patterns that stress the two-level structure: segments over
+    several blocks, flagless blocks, a late first flag, a ragged tail."""
+    vals, starts = checks.segscan_case(pattern, kind, dtype, k, ADV_N,
+                                       seed=k + len(pattern))
     got, want = _both(kind, vals, starts, one_d=(k == 1))
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.tobytes() == want.tobytes()

@@ -15,11 +15,17 @@ and prints no result line):
 3. each kernel against its plain PyTorch version on the card, at the shapes
    its main path gives it, timed on the card (``device_ms``) in the order
    plain, kernel, kernel, plain: K1-K4 at the fusion bench config, T1-T3
-   at the TSDF config 5; beside each time the kernel's bound (the least
-   time the card could take for the same inputs,
-   ``hifi_fusion_tpu_torch/bounds.py``) and the share of it reached, and
-   for T1 the time of one PyTorch call that computes its segment totals
-   (``torch.segment_reduce``), a yardstick the port never calls;
+   at the TSDF config 5, and K2 at each of its three call shapes (the
+   fusion integrate, the refine's line cells and the TSDF batch, on the
+   key table and ids those calls get, captured from the port's own
+   paths), K2 and K4 behind a read that leaves the L2 cold, as the main
+   path does; beside each time the kernel's bound (the least time the
+   card could take for the same inputs,
+   ``hifi_fusion_tpu_torch/bounds.py``) and the share of it reached, for
+   K2 each shape's ids, new ids and load factor, for K4 its candidates,
+   gated candidates and window words, and for T1 the time of one PyTorch
+   call that computes its segment totals (``torch.segment_reduce``), a
+   yardstick the port never calls;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, then ``process()``; checks overflow counters, voxel count,
@@ -33,13 +39,16 @@ and prints no result line):
    ``process()``; checks overflow counters, frames, unit normals, the PCD
    and CSV files, and that T1, T2, T3 and K2 launched.
 
-The last lines are a JSON object of per-kernel results, the nvidia-smi
-line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are a JSON object of per-kernel results (K2's entry holds
+its integrate shape's numbers and, under ``shapes``, every shape's), the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import shutil
 import statistics
@@ -173,9 +182,118 @@ def max_err(pairs) -> float:
                 for g, w in pairs if g.numel()), default=0.0)
 
 
+def captured_inserts(hashing, fn) -> list:
+    """Run ``fn()`` and return ``(table, ids)`` for every
+    ``hashing.lookup_or_insert`` call it makes: a copy of the key table as
+    it stood before the call, and the ids, so that K2 is held and timed on
+    exactly the inputs a main path gives it."""
+    calls = []
+    real = hashing.lookup_or_insert
+
+    def spy(key_table, ids, *args, **kw):
+        calls.append((key_table.clone(), ids.clone()))
+        return real(key_table, ids, *args, **kw)
+
+    hashing.lookup_or_insert = spy
+    try:
+        fn()
+    finally:
+        hashing.lookup_or_insert = real
+    return calls
+
+
+def copy_grid(grid):
+    """A copy of a grid dataclass with every tensor cloned."""
+    return dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).clone()
+        for f in dataclasses.fields(grid)})
+
+
+@functools.cache
+def flush_buffer(torch):
+    """128 MB on the card, written once, so that a flush only reads."""
+    return torch.ones(32 << 20, dtype=torch.int32, device="cuda")
+
+
+def cold(torch, *args):
+    """``args`` after reading 128 MB, so that the timed call finds the
+    50 MB L2 holding none of its inputs, as the main path does after its
+    sorts and scans."""
+    flush_buffer(torch).sum()
+    return args
+
+
+def fusion_state(torch, hashing, pipe, batch, rays):
+    """The fusion bench grid after two K=8 batches and a refine after each,
+    then the third batch integrated, with K2's call captured (shape
+    ``integrate``), and the refine after it run on a copy, with K2's line
+    cell call captured (shape ``refine``).  Returns the grid after the
+    third batch and ``{shape: (table, ids)}``."""
+    grid = pipe.init()
+    for i in range(2):
+        pipe.step_batch_depth(grid, *batch(i), rays)
+        pipe.refine(grid)
+    (a,) = captured_inserts(hashing, lambda: pipe.step_batch_depth(
+        grid, *batch(2), rays))
+    (b,) = captured_inserts(hashing, lambda: pipe.refine(copy_grid(grid)))
+    return grid, {"integrate": a, "refine": b}
+
+
+def tsdf_state(hashing, pipe, batch, rays):
+    """The config-5 grid after two K=8 batches, and the third batch
+    integrated into a copy, with K2's call captured (shape ``tsdf``)."""
+    grid = pipe.init()
+    for i in range(2):
+        pipe.step_batch_depth(grid, *batch(i), rays)
+    (c,) = captured_inserts(hashing, lambda: pipe.step_batch_depth(
+        copy_grid(grid), *batch(2), rays))
+    return grid, c
+
+
+def check_insert(torch, table, ids, max_probes, shape) -> dict:
+    """K2 against its plain version on one captured call: both tables must
+    hold the same id set, every id at its slot, no failures.  Times the
+    form the callers use (the failures added into their counter).
+    Returns the ``timed`` entry with the shape's counts."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.ops import hashing
+    C = table.numel()
+
+    def counter():
+        return torch.zeros((), dtype=torch.int32, device=table.device)
+
+    def insert(fn):
+        key, nf = table.clone(), counter()
+        slot = fn(key, ids, max_probes, C, nf)
+        return key, slot, int(nf)
+
+    kk, sk, fk = insert(hashing.lookup_or_insert)
+    kp, sp, fp = insert(hashing.insert_plain)
+    bad = int((kk[sk.long()] != ids).sum()) + int((kp[sp.long()]
+                                                    != ids).sum())
+    bad += int((torch.sort(kk).values != torch.sort(kp).values).sum())
+    if bad or fk or fp:
+        raise AssertionError(f"hash_insert {shape}: {bad} id mismatches, "
+                             f"failures kernel {fk} plain {fp}")
+    counts = bounds.hash_insert_counts(table, kk)
+    ms, pms = time_pair(
+        torch, hashing.lookup_or_insert, hashing.insert_plain,
+        lambda: cold(torch, table.clone(), ids, max_probes, C, counter()))
+    warm = device_ms(torch, hashing.lookup_or_insert, lambda: (
+        table.clone(), ids, max_probes, C, counter()))
+    log(f"phase 3: hash_insert {shape}: n {ids.numel()}, n_new "
+        f"{counts['n_new']}, load {counts['load_before']:.4f} -> "
+        f"{counts['load_after']:.4f} of {C} slots; {warm:.4f} ms with the "
+        f"table left in L2 by its copy")
+    return {**timed(float(bad), ms, pms, bounds.hash_insert(
+        ids.numel(), counts["n_new"])), "n": int(ids.numel()), **counts,
+        "warm_ms": warm}
+
+
 def check_kernels(torch, cfg, frames, rays, dev):
     """Phase 3: every kernel against its plain version at main-path
-    shapes.  Returns {name: ``timed`` entry}."""
+    shapes.  Returns {name: ``timed`` entry}; K2's entries are named
+    ``hash_insert/<shape>``."""
     from hifi_fusion_tpu_torch import bounds, checks
     from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
     from hifi_fusion_tpu_torch.ops import hashing, integrate, refine
@@ -203,45 +321,26 @@ def check_kernels(torch, cfg, frames, rays, dev):
     res["depth_frontend"] = timed(err, ms, pms,
                                   bounds.depth_frontend(*b0[0].shape))
 
-    # a grid with normals and dependants: two batches, a refine after each
-    grid = pipe.init()
-    for i in range(2):
-        pipe.step_batch_depth(grid, *batch(i), rays)
-        pipe.refine(grid)
-    b2 = batch(2)
-    world, ids, _ = integrate.depth_frontend(*b2, rays, cfg)
+    # K2 at the integrate and refine shapes of the third batch
+    grid, calls = fusion_state(torch, hashing, pipe, batch, rays)
+    for shape, (table, ids) in calls.items():
+        res[f"hash_insert/{shape}"] = check_insert(
+            torch, table, ids, cfg.max_probes, shape)
+
+    # K3: the third batch's points through the grid's dependants (the
+    # integrate streams them after the per-cell sums, which K3 does not
+    # read)
+    world, ids, _ = integrate.depth_frontend(*batch(2), rays, cfg)
     sid, order = torch.sort(ids, stable=True)
     n_act = int((sid != integrate.INVALID_ID).sum())
     uids, run = torch.unique_consecutive(sid[:n_act], return_inverse=True)
     pts = world[:, order[:n_act]].contiguous()
-
-    # K2: both tables must hold the same id set, every id at its slot
-    def insert(fn):
-        key = grid.key.clone()
-        slot, failed = fn(key, uids, cfg.max_probes, cfg.capacity)
-        return key, slot, int(failed)
-
-    kk, sk, fk = insert(hashing.lookup_or_insert)
-    kp, sp, fp = insert(hashing.insert_plain)
-    bad = int((kk[sk.long()] != uids).sum()) + int((kp[sp.long()]
-                                                     != uids).sum())
-    bad += int((torch.sort(kk).values != torch.sort(kp).values).sum())
-    if bad or fk or fp:
-        raise AssertionError(f"hash_insert: {bad} id mismatches, failures "
-                             f"kernel {fk} plain {fp}")
-    ms, pms = time_pair(
-        torch, hashing.lookup_or_insert, hashing.insert_plain,
-        lambda: (grid.key.clone(), uids, cfg.max_probes, cfg.capacity))
-    n_new = int((kk != grid.key).sum())
-    res["hash_insert"] = timed(float(bad), ms, pms,
-                               bounds.hash_insert(uids.numel(), n_new))
-
-    # K3: the third batch's points through the grid's dependants
-    slot_pt = sk[run].contiguous()
+    slot_pt = hashing.lookup(grid.key, uids, cfg.max_probes,
+                             cfg.capacity)[run].contiguous()
 
     def stream_grid():
         return (pts, slot_pt, dataclasses.replace(
-            grid, key=kk, cyl_stats=grid.cyl_stats.clone()), cfg)
+            grid, cyl_stats=grid.cyl_stats.clone()), cfg)
 
     gk, gp = stream_grid()[2], stream_grid()[2]
     integrate.dep_stream(pts, slot_pt, gk, cfg)
@@ -262,19 +361,26 @@ def check_kernels(torch, cfg, frames, rays, dev):
                         integrate.dep_stream_plain, stream_grid)
     res["dep_stream"] = timed(err, ms, pms, bounds.dep_stream(**counts))
 
-    # K4: the candidates after the third batch
-    pipe.step_batch_depth(grid, *b2, rays)
+    # K4: the refine's candidates after the third batch
     cand = torch.nonzero((grid.n_pts > 0) & ~grid.normal_found
                          ).squeeze(1).to(torch.int32)
 
-    def fit_grid():
-        return (cand, dataclasses.replace(
+    def warm_grid():
+        return cand, dataclasses.replace(
             grid, normal=grid.normal.clone(),
-            normal_found=grid.normal_found.clone()), cfg)
+            normal_found=grid.normal_found.clone()), cfg
+
+    def fit_grid():
+        return cold(torch, *warm_grid())
 
     gk, gp = fit_grid()[1], fit_grid()[1]
     nk, okk = refine.normal_fit(cand, gk, cfg)
     np_, okp = refine.normal_fit_plain(cand, gp, cfg)
+    words = bounds.normal_fit_words(grid.key[cand.long()], cfg.dims,
+                                    cfg.k_neighborhood, grid.occ_bits.numel())
+    log(f"phase 3: normal_fit: U {cand.numel()}, n_gated "
+        f"{int(okk.sum())}, {words} distinct window words, k "
+        f"{cfg.k_neighborhood}")
     if not torch.equal(okk, okp) or not torch.equal(gk.normal_found,
                                                     gp.normal_found):
         raise AssertionError("normal_fit: gate differs from plain")
@@ -284,20 +390,22 @@ def check_kernels(torch, cfg, frames, rays, dev):
                              f"({int(okk.sum())} gated)")
     ms, pms = time_pair(torch, refine.normal_fit, refine.normal_fit_plain,
                         fit_grid)
-    words = bounds.normal_fit_words(grid.key[cand.long()], cfg.dims,
-                                    cfg.k_neighborhood, grid.occ_bits.numel())
-    res["normal_fit"] = timed(err, ms, pms, bounds.normal_fit(
-        cand.numel(), int(okk.sum()), words))
+    warm = device_ms(torch, refine.normal_fit, warm_grid)
+    log(f"phase 3: normal_fit: {warm:.4f} ms without the L2 read ahead")
+    res["normal_fit"] = {**timed(err, ms, pms, bounds.normal_fit(
+        cand.numel(), int(okk.sum()), words)), "U": int(cand.numel()),
+        "n_gated": int(okk.sum()), "words": words, "warm_ms": warm}
     return res
 
 
 def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     """Phase 3, TSDF config 5: T2 and T1 on the sweep's third K=8 batch
-    (27.0 M sample lanes), T3 on the surface of a grid after two batches.
-    Returns {name: ``timed`` entry}."""
+    (27.0 M sample lanes), T3 on the surface of a grid after two batches,
+    K2 on that batch's insert into that grid.  Returns {name: ``timed``
+    entry}."""
     from hifi_fusion_tpu_torch import bounds
     from hifi_fusion_tpu_torch.models import tsdf
-    from hifi_fusion_tpu_torch.ops import scatter
+    from hifi_fusion_tpu_torch.ops import hashing, scatter
     pipe = tsdf.TsdfPipeline(tcfg, dev)
     K = tcfg.base.max_batch_frames
     res = {}
@@ -356,9 +464,7 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     # T3: a grid after two batches; exact expected, gated at 1e-6 since
     # the plain version's sqrt and divisions run in PyTorch's own CUDA
     # kernels, outside this repository's compiler flags
-    grid = pipe.init()
-    for i in range(2):
-        pipe.step_batch_depth(grid, *batch(i), rays)
+    grid, (table, ids) = tsdf_state(hashing, pipe, batch, rays)
     cell, slots = tsdf.surface_cells(grid, tcfg)
     got = tsdf.tsdf_surface(cell, slots, grid, tcfg)
     want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
@@ -373,6 +479,11 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
                         lambda: (cell, slots, grid, tcfg))
     res["tsdf_surface"] = timed(err, ms, pms,
                                 bounds.tsdf_surface(cell.numel()))
+
+    # K2 at the TSDF batch shape: the third batch's distinct cells into
+    # the 2^24-slot table after two batches
+    res["hash_insert/tsdf"] = check_insert(torch, table, ids,
+                                           tcfg.base.max_probes, "tsdf")
     return res
 
 
@@ -617,7 +728,11 @@ def main() -> int:
         f"{mpts:.3f} Mpts/s ({card}); process() {t_proc:.3f} s; {n} "
         f"surface voxels; launches {tsdf_launches}; {json.dumps(gm)}")
 
-    # launches: the sum over the two main-path runs (phases 4 and 6)
+    # launches: the sum over the two main-path runs (phases 4 and 6); K2's
+    # entry holds its integrate shape's numbers and every shape's
+    shapes = {k.split("/")[1]: kres.pop(k) for k in list(kres)
+              if k.startswith("hash_insert/")}
+    kres["hash_insert"] = {**shapes["integrate"], "shapes": shapes}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": fusion_launches[name] + tsdf_launches[name],

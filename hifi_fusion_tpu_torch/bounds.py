@@ -50,6 +50,17 @@ def hash_insert(U: int, n_new: int) -> dict:
     return bound(U * 4 + U * 4 + n_new * 4 + U * 4 + 4)
 
 
+def hash_insert_counts(before: torch.Tensor, after: torch.Tensor) -> dict:
+    """The counts of one K2 call from its key table before and after:
+    ``n_new`` slots it filled, and the share of slots filled before and
+    after (the load factor the probes met, and the one left)."""
+    C = before.numel()
+    filled = before >= 0
+    return {"n_new": int((~filled & (after >= 0)).sum()),
+            "load_before": int(filled.sum()) / C,
+            "load_after": int((after >= 0).sum()) / C}
+
+
 def dep_stream(n: int, n_cells: int, n_dep_words: int, n_owners: int,
                n_hit_owners: int, n_pairs: int) -> dict:
     """K3 on n point lanes: each lane's xyz and slot (16 B); per cell its

@@ -1,4 +1,4 @@
-// Kernel K4: the refine pass's normal fit, one thread per candidate.
+// Kernel K4: the refine pass's normal fit.
 //
 // Replaces: the candidate fit of refine_pass_impl in
 // hifi_fusion_tpu/ops/refine.py (:171-260): the (2k+1)^3 occupancy window
@@ -9,22 +9,32 @@
 // (hifi_fusion_tpu/ops/eigen33.py:27-105), and the orientation toward
 // the stored viewpoint (:252-254).
 //
-// Bound on the card: scattered loads.  A candidate reads 2 bitmap words
-// per column (50 for k=2) from a 24.5 MB bitmap at the bench size, which
-// fits in the 50 MB L2, plus its key and viewpoint; ~1.3 k flops of
-// moments and ~100 of eigen math.  At U <= 2^18 candidates that is ~13 M
-// scattered 4 B reads and ~0.4 Gflop: latency-bound, not compute-bound.
+// Bound on the card: latency of scattered loads.  A candidate reads its
+// slot, then its key and viewpoint, then 2 bitmap words per column (50
+// for k=2) from a 24.5 MB bitmap at the bench size; ~1.3 k flops of
+// moments and ~150 of eigen math.  The bench refine's ~12 k candidates
+// make under one wave of the card, so the time is the chain of dependent
+// memory round trips each candidate waits for, and its serial sums, not
+// bytes or flops.
 //
-// Design: the thread keeps the 9 moments in registers and walks the
-// window in (dx, dy, dz) order.  The plain version (ops/refine.py
-// normal_fit_plain) sums the moments in the same order and performs the
-// same f32 operations in the same order (the library is built with
-// -fmad=false), so the gate count is exact and the normals agree closely;
-// that matters because a window whose two smallest eigenvalues nearly
-// coincide has an ill-conditioned normal, where any change of rounding
-// turns the normal by up to ~1e-3.  Gated candidates write normal and
-// normal_found in place; every candidate also writes its oriented normal
-// and gate to nvec / gated, which the line-cell stage reads.
+// Design: one thread a candidate, three dependent round trips (slot;
+// key and viewpoint; every column's two words at once) instead of one a
+// column.  Each column's words are cut to its (2k+1)-bit z window,
+// masked to the cells inside the grid, and the thread sums the 9 moments
+// over the occupied bits in (dx, dy, dz) order.  The plain version
+// (ops/refine.py normal_fit_plain) sums in the same order with the same
+// f32 operations (the library is built with -fmad=false), so the gate
+// count is exact and the sums bit-identical; that matters because a
+// window whose two smallest eigenvalues nearly coincide has an
+// ill-conditioned normal, where any change of rounding turns the normal
+// by up to ~1e-3.  The window of k = 1, 2, 3 is one round of loads
+// (template); any other k up to 15 (a column's 2k+1 bits in two words)
+// takes rounds of 32 columns.  A group of 8 or 32 lanes a candidate, its
+// windows gathered by shuffles, was slower on the card (PERF.md):
+// the card has the threads to spare, but each lane of a group repeats the
+// sums.  Gated candidates write normal and normal_found in place; every
+// candidate also writes its oriented normal and gate to nvec / gated,
+// which the line-cell stage reads.
 
 #include "common.cuh"
 
@@ -48,7 +58,11 @@ __device__ void eigenvector_sym(float a00, float a01, float a02, float a11,
     const float n12 = c12[0] * c12[0] + c12[1] * c12[1] + c12[2] * c12[2];
     const bool best12 = n12 > fmaxf(n01, n02);
     const bool best02 = (n02 >= n12) && (n02 > n01);
-    const float* c = best12 ? c12 : (best02 ? c02 : c01);
+    // the chosen cross product by value (a pointer select would put the
+    // three in local memory)
+    float c[3];
+    for (int a = 0; a < 3; ++a)
+        c[a] = best12 ? c12[a] : (best02 ? c02[a] : c01[a]);
     const float nrm = sqrtf(fmaxf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2],
                                   0.0f));
     if (nrm > EPS12) {
@@ -90,48 +104,94 @@ __device__ void smallest_eigvec_sym(float a00, float a01, float a02,
     eigenvector_sym(a00, a01, a02, a11, a12, a22, lam, v);
 }
 
-__global__ void normal_fit_kernel(
+constexpr int kThreads = 128;
+constexpr int kMaxK = 15;
+
+// the bitmap bit of cell (cx + dx, cy + dy, cz) for column c = (dx + k) *
+// S + (dy + k) of the window, or -1 for a column past NC or outside the
+// grid
+__device__ __forceinline__ int column_base(const Geo& g, int cx, int cy,
+                                          int cz, int c, int S, int k,
+                                          int NC) {
+    const int nx = cx + c / S - k, ny = cy + c % S - k;
+    if (c >= NC || nx < 0 || nx >= g.dims[0] || ny < 0 || ny >= g.dims[1])
+        return -1;
+    return (nx * g.dims[1] + ny) * g.dims[2] + cz;
+}
+
+// the column's z window: bit t = dz + k holds cell (.., cz + dz), from
+// the two bitmap words at and after bit shpos = max(colbase - k, 0), the
+// words the JAX package reads; bit t lies at bit t - off of the 32 bits
+// from shpos, where off > 0 only near the bitmap's start (bitpos < 0)
+__device__ __forceinline__ uint32_t column_window(uint32_t w0, uint32_t w1,
+                                                  int colbase, int k,
+                                                  uint32_t zmask) {
+    const int shpos = max(colbase - k, 0);
+    const int off = shpos - (colbase - k);
+    const uint32_t b0 = (uint32_t)(shpos & 31);
+    const uint32_t win = (w0 >> b0) | (b0 > 0 ? w1 << (32 - b0) : 0u);
+    return (win << off) & zmask;
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kThreads) normal_fit_kernel(
     const int* __restrict__ cand, int U, const int* __restrict__ key,
-    const int* __restrict__ occ_bits, int W,
-    const float* __restrict__ viewpoint, Geo g, int k, int min_nb,
+    const uint32_t* __restrict__ occ_bits, int W,
+    const float* __restrict__ viewpoint, Geo g, int k_arg, int min_nb,
     float* __restrict__ nvec, unsigned char* __restrict__ gated,
     float* __restrict__ normal, unsigned char* __restrict__ normal_found) {
-    int u = blockIdx.x * blockDim.x + threadIdx.x;
+    // columns a round of loads: the whole window for k = KT
+    constexpr int CH = KT > 0 ? (2 * KT + 1) * (2 * KT + 1) : 32;
+    const int k = KT > 0 ? KT : k_arg;
+    const int S = 2 * k + 1, NC = S * S;
+    const int u = blockIdx.x * kThreads + threadIdx.x;
     if (u >= U) return;
     const int s = cand[u];
     const int id = key[s];
+    const float vp0 = viewpoint[3L * s], vp1 = viewpoint[3L * s + 1],
+                vp2 = viewpoint[3L * s + 2];
     const int cz = id % g.dims[2];
     const int cy = (id / g.dims[2]) % g.dims[1];
     const int cx = (id / g.dims[2]) / g.dims[1];
+    // z bits t whose cell cz + t - k lies inside the grid
+    const int zlo = max(0, k - cz), zhi = min(S - 1, g.dims[2] - 1 - cz + k);
+    const uint32_t zmask = zhi < zlo ? 0u
+        : (((2u << zhi) - 1u) & ~((1u << zlo) - 1u));
 
     int total = 0;
     float m[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    for (int dx = -k; dx <= k; ++dx) {
-        for (int dy = -k; dy <= k; ++dy) {
-            const int nx = cx + dx, ny = cy + dy;
-            if (nx < 0 || nx >= g.dims[0] || ny < 0 || ny >= g.dims[1])
-                continue;
-            // the column's 2k+1 z bits lie in at most two adjacent words
-            const int colbase = (nx * g.dims[1] + ny) * g.dims[2] + cz;
-            const int shpos = max(colbase - k, 0);
-            const int w0i = min(shpos >> 5, W - 1);
-            const uint32_t w0 = (uint32_t)occ_bits[w0i];
-            const uint32_t w1 =
-                w0i + 1 < W ? (uint32_t)occ_bits[w0i + 1] : 0u;
-            const uint32_t b0 = (uint32_t)(shpos & 31);
-            const uint32_t win = (w0 >> b0) | (b0 > 0 ? w1 << (32 - b0) : 0u);
-            for (int dz = -k; dz <= k; ++dz) {
-                const int nz = cz + dz;
-                const int bitpos = colbase + dz - shpos;
-                if (nz < 0 || nz >= g.dims[2] || bitpos < 0) continue;
-                if (((win >> bitpos) & 1u) == 0) continue;
-                ++total;
-                const float ox = (float)dx * g.res[0];
-                const float oy = (float)dy * g.res[1];
-                const float oz = (float)dz * g.res[2];
+    for (int c0 = 0; c0 < NC; c0 += CH) {
+        // every word load of the round first
+        uint32_t w0[CH], w1[CH];
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+            const int col = column_base(g, cx, cy, cz, c0 + q, S, k, NC);
+            w0[q] = 0u;
+            w1[q] = 0u;
+            if (col >= 0) {
+                const int w0i = min(max(col - k, 0) >> 5, W - 1);
+                w0[q] = __ldg(occ_bits + w0i);
+                if (w0i + 1 < W) w1[q] = __ldg(occ_bits + w0i + 1);
+            }
+        }
+        // then the columns in order, each over its occupied z bits
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+            const int c = c0 + q;
+            const int col = column_base(g, cx, cy, cz, c, S, k, NC);
+            if (col < 0) continue;
+            uint32_t b = column_window(w0[q], w1[q], col, k, zmask);
+            const float ox = (float)(c / S - k) * g.res[0];
+            const float oy = (float)(c % S - k) * g.res[1];
+            const float oxx = ox * ox, oxy = ox * oy, oyy = oy * oy;
+            total += __popc(b);
+            while (b) {
+                const int t = __ffs(b) - 1;
+                b &= b - 1u;
+                const float oz = (float)(t - k) * g.res[2];
                 m[0] += ox; m[1] += oy; m[2] += oz;
-                m[3] += ox * ox; m[4] += ox * oy; m[5] += ox * oz;
-                m[6] += oy * oy; m[7] += oy * oz; m[8] += oz * oz;
+                m[3] += oxx; m[4] += oxy; m[5] += ox * oz;
+                m[6] += oyy; m[7] += oy * oz; m[8] += oz * oz;
             }
         }
     }
@@ -143,9 +203,8 @@ __global__ void normal_fit_kernel(
                         m[7] / tot - my * mz, m[8] / tot - mz * mz, v);
     float c[3];
     center_of_id(g, id, c);
-    const float dot = (viewpoint[3L * s] - c[0]) * v[0]
-                      + (viewpoint[3L * s + 1] - c[1]) * v[1]
-                      + (viewpoint[3L * s + 2] - c[2]) * v[2];
+    const float dot = (vp0 - c[0]) * v[0] + (vp1 - c[1]) * v[1]
+                      + (vp2 - c[2]) * v[2];
     if (dot < 0.0f)
         for (int a = 0; a < 3; ++a) v[a] = -v[a];
     const bool ok = total >= min_nb;
@@ -157,19 +216,40 @@ __global__ void normal_fit_kernel(
     }
 }
 
+template <int KT>
+static void launch(const void* cand, int U, const void* key,
+                   const void* occ_bits, int W, const void* viewpoint,
+                   const Geo& g, int k, int min_nb, void* nvec, void* gated,
+                   void* normal, void* normal_found, cudaStream_t stream) {
+    normal_fit_kernel<KT><<<grid_blocks(U, kThreads), kThreads, 0, stream>>>(
+            (const int*)cand, U, (const int*)key, (const uint32_t*)occ_bits,
+            W, (const float*)viewpoint, g, k, min_nb, (float*)nvec,
+            (unsigned char*)gated, (float*)normal,
+            (unsigned char*)normal_found);
+}
+
 extern "C" int launch_normal_fit(const void* cand, int U, const void* key,
                                  const void* occ_bits, int W,
                                  const void* viewpoint, const float* geo_f,
                                  const int* geo_i, int k, int min_nb,
                                  void* nvec, void* gated, void* normal,
                                  void* normal_found, void* stream) {
+    if (k < 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
     if (U == 0) return 0;
-    const int threads = 128;
-    normal_fit_kernel<<<grid_blocks(U, threads), threads, 0,
-                        (cudaStream_t)stream>>>(
-        (const int*)cand, U, (const int*)key, (const int*)occ_bits, W,
-        (const float*)viewpoint, make_geo(geo_f, geo_i), k, min_nb,
-        (float*)nvec, (unsigned char*)gated, (float*)normal,
-        (unsigned char*)normal_found);
+    const Geo g = make_geo(geo_f, geo_i);
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (k) {
+        case 1: launch<1>(cand, U, key, occ_bits, W, viewpoint, g, k,
+                          min_nb, nvec, gated, normal, normal_found, st);
+                break;
+        case 2: launch<2>(cand, U, key, occ_bits, W, viewpoint, g, k,
+                          min_nb, nvec, gated, normal, normal_found, st);
+                break;
+        case 3: launch<3>(cand, U, key, occ_bits, W, viewpoint, g, k,
+                          min_nb, nvec, gated, normal, normal_found, st);
+                break;
+        default: launch<0>(cand, U, key, occ_bits, W, viewpoint, g, k,
+                           min_nb, nvec, gated, normal, normal_found, st);
+    }
     return (int)cudaGetLastError();
 }

@@ -227,9 +227,8 @@ def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
     grid.overflow_unique += max(spos.numel() - U, 0)
     uids = sid[spos[:U]]
     usums = sums6[:, epos[:U]]
-    uslot, n_failed = hashing.lookup_or_insert(
-        grid.key, uids, config.base.max_probes, C)
-    grid.overflow_probe += n_failed
+    uslot = hashing.lookup_or_insert(grid.key, uids, config.base.max_probes,
+                                     C, grid.overflow_probe)
     placed = uslot >= 0
     grid.vstats.view(C, 6).index_add_(0, uslot[placed].long(),
                                       usums[:, placed].t())

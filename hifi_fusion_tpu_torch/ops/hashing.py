@@ -4,7 +4,8 @@ The counterpart of ``hifi_fusion_tpu/ops/hashing.py``.  Keys are dense
 int32 cell ids in a power-of-two key table (``-1`` = empty).  A cell id
 probes ``(fmix32(id) + j(j+1)/2) & (C-1)`` for ``j < max_probes``; an id
 that finds neither itself nor an empty slot within the bound is dropped and
-counted (the caller adds the count to ``overflow_probe``).
+counted: into the caller's ``overflow_probe`` counter where it passes one,
+else in a returned count.
 
 ``lookup_or_insert`` is kernel K2 (``csrc/hash_insert.cu``) on a CUDA
 tensor and its plain version on a CPU tensor.  Either may assign other
@@ -14,7 +15,7 @@ cell id.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -65,9 +66,10 @@ def lookup(key_table: torch.Tensor, ids: torch.Tensor, max_probes: int,
     return slot
 
 
-def insert_plain(key_table, ids, max_probes, capacity):
+def insert_plain(key_table, ids, max_probes, capacity, overflow=None):
     """Plain version of K2: the same probe sequence, one round per probe
-    index over the unresolved ids."""
+    index over the unresolved ids.  Returns what ``lookup_or_insert``
+    returns."""
     h0 = hash_u32(ids)
     slot = torch.full_like(ids, -1)
     pending = torch.arange(ids.numel(), device=ids.device)
@@ -88,18 +90,25 @@ def insert_plain(key_table, ids, max_probes, capacity):
         slot[pending[win]] = cand[win].to(slot.dtype)
         found[win] = True
         pending = pending[~found]
-    n_failed = torch.tensor(pending.numel(), dtype=torch.int32,
-                            device=ids.device)
-    return slot, n_failed
+    if overflow is not None:
+        overflow += pending.numel()
+        return slot
+    return slot, torch.tensor(pending.numel(), dtype=torch.int32,
+                              device=ids.device)
 
 
 def lookup_or_insert(key_table: torch.Tensor, ids: torch.Tensor,
-                     max_probes: int, capacity: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Find-or-insert DISTINCT int32 ``ids`` (both callers deduplicate
-    first).  Updates ``key_table`` in place and returns ``(slot, n_failed)``:
-    a slot per id, -1 for an id that exhausted ``max_probes``, and the
-    number of such ids as a 0-d int32 tensor."""
+                     max_probes: int, capacity: int,
+                     overflow: Optional[torch.Tensor] = None
+                     ) -> Union[torch.Tensor,
+                                Tuple[torch.Tensor, torch.Tensor]]:
+    """Find-or-insert DISTINCT int32 ``ids`` (every caller deduplicates
+    first).  Updates ``key_table`` in place and gives a slot per id, -1
+    for an id that exhausted ``max_probes``.  With ``overflow``, the
+    caller's 0-d int32 counter, the number of such ids is added into it in
+    place and the slots alone are returned (one launch on the card);
+    without it, ``(slot, n_failed)`` with the number as a 0-d int32
+    tensor."""
     if key_table.dtype != torch.int32 or ids.dtype != torch.int32:
         raise TypeError("key_table and ids must be int32")
     if key_table.dim() != 1 or key_table.numel() != capacity \
@@ -107,20 +116,25 @@ def lookup_or_insert(key_table: torch.Tensor, ids: torch.Tensor,
         raise ValueError("key_table must be a contiguous (capacity,) table")
     if ids.device != key_table.device:
         raise ValueError("ids and key_table must share a device")
+    if overflow is not None and (overflow.dtype != torch.int32
+                                 or overflow.dim() != 0
+                                 or overflow.device != key_table.device):
+        raise ValueError("overflow must be a 0-d int32 counter on the "
+                         "table's device")
     if key_table.device.type == "cpu":
-        return insert_plain(key_table, ids, max_probes, capacity)
+        return insert_plain(key_table, ids, max_probes, capacity, overflow)
     if key_table.device.type != "cuda":
         raise ValueError(f"unsupported device {key_table.device}")
     ids = ids.contiguous()
     n = ids.numel()
     slot = torch.empty(n, dtype=torch.int32, device=ids.device)
-    n_failed = torch.zeros((), dtype=torch.int32, device=ids.device)
-    if n == 0:
-        return slot, n_failed
-    lib = kernels.library()
-    kernels.check(lib.launch_hash_insert(
-        key_table.data_ptr(), ids.data_ptr(), n, capacity, max_probes,
-        slot.data_ptr(), n_failed.data_ptr(), kernels.stream()),
-        "hash_insert")
-    kernels.LAUNCHES["hash_insert"] += 1
-    return slot, n_failed
+    n_failed = overflow if overflow is not None else torch.zeros(
+        (), dtype=torch.int32, device=ids.device)
+    if n:
+        lib = kernels.library()
+        kernels.check(lib.launch_hash_insert(
+            key_table.data_ptr(), ids.data_ptr(), n, capacity, max_probes,
+            slot.data_ptr(), n_failed.data_ptr(), kernels.stream()),
+            "hash_insert")
+        kernels.LAUNCHES["hash_insert"] += 1
+    return slot if overflow is not None else (slot, n_failed)

@@ -206,9 +206,8 @@ def integrate_batch_depth(grid: GridState, depth: torch.Tensor,
     fid = order // N
 
     uids, ustart, ulen, run = runs(sid)
-    uslot, n_failed = hashing.lookup_or_insert(grid.key, uids,
-                                               config.max_probes, C)
-    grid.overflow_probe += n_failed
+    uslot = hashing.lookup_or_insert(grid.key, uids, config.max_probes, C,
+                                     grid.overflow_probe)
     placed = uslot >= 0
     us = uslot.clamp(min=0).long()
     occ0 = placed & (grid.n_pts[us] > 0)

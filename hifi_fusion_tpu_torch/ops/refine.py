@@ -152,9 +152,8 @@ def refine_pass(grid: GridState, config: FusionConfig) -> GridState:
                 & geometry.valid_coords(lc, config)).reshape(-1)    # (L*U,)
     lids = geometry.cell_id(lc, config).reshape(-1)
     uq, inv = torch.unique(lids[lp_valid], return_inverse=True)
-    uslot, n_failed = hashing.lookup_or_insert(
-        grid.key, uq.to(i32), config.max_probes, C)
-    grid.overflow_probe += n_failed
+    uslot = hashing.lookup_or_insert(grid.key, uq.to(i32), config.max_probes,
+                                     C, grid.overflow_probe)
     lslot = torch.full((L * U,), -1, dtype=i32, device=dev)
     lslot[lp_valid] = uslot[inv]
 

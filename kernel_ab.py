@@ -1,34 +1,42 @@
 #!/usr/bin/env python3
-"""Times kernels T1 and K3, and the two replays, of two checkouts of the
-PyTorch port on one CUDA card, in the order A, B, B, A.
+"""Times kernels K2 (at its three call shapes), K4, T1 and K3, and the two
+replays, of two or more checkouts of the PyTorch port on one CUDA card, in
+the order A, B, ..., ..., B, A.
 
-    python3 kernel_ab.py A_DIR B_DIR
+    python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
 
-Each of the four runs is a process of its own that imports
-``hifi_fusion_tpu_torch`` from its checkout (building that checkout's
-kernels there) and prints one JSON line:
+Each run is a process of its own that imports ``hifi_fusion_tpu_torch``
+from its checkout (building that checkout's kernels there) and prints one
+JSON line.  The inputs are built through that checkout's own paths, with
+``chip_smoke.py``'s functions from this script's checkout:
 
-* ``segscan``: T1 (``ops.scatter.segment_reduce``, kind add) on the sorted
-  sample lanes of the seeded sweep's third K=8 batch at TSDF config 5
-  (6 x 27,033,600 lanes), as ``chip_smoke.py`` phase 3 feeds it;
-* ``dep_stream``: K3 (``ops.integrate.dep_stream``) on the third K=8
-  batch's points at the fusion bench config, through a grid after two
-  batches and refines, as phase 3 feeds it;
+* ``hash_insert/integrate``, ``hash_insert/refine``, ``hash_insert/tsdf``:
+  K2 on the key table and ids of the calls that the fusion integrate of
+  the seeded sweep's third K=8 batch, the refine after it, and the TSDF
+  config-5 integrate of that batch make (``chip_smoke.fusion_state`` and
+  ``tsdf_state``), in the form the checkout's callers use: the failures
+  added into their counter (one launch), or for a wrapper without that
+  argument the returned count added by the caller;
+* ``normal_fit``: K4 on the refine's candidates after that batch;
+* ``segscan``: T1 (kind add) on the batch's sorted sample lanes at TSDF
+  config 5 (6 x 27,033,600 lanes);
+* ``dep_stream``: K3 on the batch's points at the fusion bench config;
 * ``fusion_mpts``, ``tsdf_mpts``: the 96-frame replays of phases 4 and 6
   (push to drain; ``process()`` follows, untimed).
 
 Kernel times are device times (``chip_smoke.device_ms``): the median of 10
 calls, CUDA events around each call, with a sleep kernel ahead of the
-start event so that the card is busy while the host enqueues the call.
-The configurations, the sweep and the replay are ``chip_smoke.py``'s, from
-this script's own checkout.  The last line is a JSON object with every
-run's results and the card's ``nvidia-smi`` name and power limit.
+start event so that the card is busy while the host enqueues the call; K2
+and K4 find the L2 cold (``chip_smoke.cold``), as on the main path.  The
+last line is a JSON object with every run's results and the card's
+``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -38,6 +46,9 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
+REPS = 10
+TIMED = ("hash_insert/integrate", "hash_insert/refine", "hash_insert/tsdf",
+         "normal_fit", "segscan", "dep_stream")
 
 
 def smoke():
@@ -49,8 +60,24 @@ def smoke():
     return mod
 
 
+def callers_insert(hashing):
+    """K2 as the checkout's callers make it: the wrapper itself where it
+    takes their overflow counter, else the returning form and the
+    caller's ``+=``."""
+    if "overflow" in inspect.signature(
+            hashing.lookup_or_insert).parameters:
+        return hashing.lookup_or_insert
+
+    def insert(key_table, ids, max_probes, capacity, overflow):
+        slot, n_failed = hashing.lookup_or_insert(key_table, ids,
+                                                  max_probes, capacity)
+        overflow += n_failed
+        return slot
+    return insert
+
+
 def child(root: str) -> dict:
-    """One run: the checkout at ``root``'s T1, K3 and replays."""
+    """One run: the checkout at ``root``'s kernels and replays."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
     cs = smoke()
@@ -58,7 +85,7 @@ def child(root: str) -> dict:
     from hifi_fusion_tpu_torch.config import FusionConfig
     from hifi_fusion_tpu_torch.models import tsdf
     from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
-    from hifi_fusion_tpu_torch.ops import hashing, integrate, scatter
+    from hifi_fusion_tpu_torch.ops import hashing, integrate, refine, scatter
     from hifi_fusion_tpu_torch.utils.synthetic import (camera_rays,
                                                        make_depth_sweep)
     if not Path(kernels.__file__).resolve().is_relative_to(
@@ -74,43 +101,66 @@ def child(root: str) -> dict:
                               arc_frames=cs.ARC_FRAMES)
     rays = torch.from_numpy(rays_np).cuda()
 
-    def batch(pipe, i, K=8):
-        fs = frames[K * i:K * i + K]
-        return (pipe.put(np.stack([f.depth_q for f in fs])),
-                pipe.put(np.stack([f.rgb565 for f in fs])),
-                pipe.put(np.full((K,), fs[0].count, np.int32)),
-                pipe.put(np.stack([f.pose for f in fs])))
+    def batcher(pipe, K=8):
+        def batch(i):
+            fs = frames[K * i:K * i + K]
+            return (pipe.put(np.stack([f.depth_q for f in fs])),
+                    pipe.put(np.stack([f.rgb565 for f in fs])),
+                    pipe.put(np.full((K,), fs[0].count, np.int32)),
+                    pipe.put(np.stack([f.pose for f in fs])))
+        return batch
+
+    insert = callers_insert(hashing)
+
+    def time_insert(table, ids, max_probes):
+        def setup():
+            return cs.cold(torch, table.clone(), ids, max_probes,
+                           table.numel(), torch.zeros(
+                               (), dtype=torch.int32, device=dev))
+        return cs.device_ms(torch, insert, setup, reps=REPS)
 
     res = {"root": root}
-    # K3
+    # K2 (integrate, refine), K3, K4
     pipe = FusionPipeline(cfg, dev)
-    grid = pipe.init()
-    for i in range(2):
-        pipe.step_batch_depth(grid, *batch(pipe, i), rays)
-        pipe.refine(grid)
-    world, ids, _ = integrate.depth_frontend(*batch(pipe, 2), rays, cfg)
+    batch = batcher(pipe)
+    grid, calls = cs.fusion_state(torch, hashing, pipe, batch, rays)
+    for shape, (table, ids) in calls.items():
+        res[f"hash_insert/{shape}"] = time_insert(table, ids,
+                                                  cfg.max_probes)
+    del calls
+    world, ids, _ = integrate.depth_frontend(*batch(2), rays, cfg)
     sid, order = torch.sort(ids, stable=True)
     n_act = int((sid != integrate.INVALID_ID).sum())
     uids, run = torch.unique_consecutive(sid[:n_act], return_inverse=True)
     pts = world[:, order[:n_act]].contiguous()
-    slots, _ = hashing.lookup_or_insert(grid.key, uids, cfg.max_probes,
-                                        cfg.capacity)
-    slot_pt = slots[run].contiguous()
+    slot_pt = hashing.lookup(grid.key, uids, cfg.max_probes,
+                             cfg.capacity)[run].contiguous()
     res["dep_stream"] = cs.device_ms(torch, integrate.dep_stream, lambda: (
         pts, slot_pt, dataclasses.replace(
-            grid, cyl_stats=grid.cyl_stats.clone()), cfg), reps=10)
+            grid, cyl_stats=grid.cyl_stats.clone()), cfg), reps=REPS)
+    cand = torch.nonzero((grid.n_pts > 0) & ~grid.normal_found
+                         ).squeeze(1).to(torch.int32)
+    res["normal_fit"] = cs.device_ms(
+        torch, refine.normal_fit, lambda: cs.cold(
+            torch, cand, dataclasses.replace(
+                grid, normal=grid.normal.clone(),
+                normal_found=grid.normal_found.clone()), cfg), reps=REPS)
     del pipe, grid, world, ids, sid, order, pts
-    # T1
+    # T1, K2 (tsdf)
     tcfg = cs.tsdf_config(FusionConfig, tsdf.TsdfConfig)
     tp = tsdf.TsdfPipeline(tcfg, dev)
-    skey, vals = tsdf.tsdf_lanes(*batch(tp, 2), rays, tcfg)
+    batch = batcher(tp)
+    skey, vals = tsdf.tsdf_lanes(*batch(2), rays, tcfg)
     sid, order = torch.sort(skey, stable=True)
     svals = vals[:, order].contiguous()
     starts = scatter.segment_starts(sid, sid != tsdf.BIG)
     del skey, vals, order
     res["segscan"] = cs.device_ms(torch, scatter.segment_reduce,
-                                  lambda: (svals, starts, "add"), reps=10)
+                                  lambda: (svals, starts, "add"), reps=REPS)
     del svals, starts, sid
+    grid, (table, ids) = cs.tsdf_state(hashing, tp, batch, rays)
+    res["hash_insert/tsdf"] = time_insert(table, ids, tcfg.base.max_probes)
+    del tp, grid, table, ids
     torch.cuda.empty_cache()
     # the replays
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
@@ -127,16 +177,18 @@ def main(argv) -> int:
     if len(argv) == 3 and argv[1] == "--child":
         print(json.dumps(child(argv[2])), flush=True)
         return 0
-    if len(argv) != 3:
+    if len(argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    a, b = argv[1], argv[2]
+    roots = argv[1:]
+    labels = [chr(ord("A") + i) for i in range(len(roots))]
+    order = list(zip(labels, roots))
     runs = []
-    for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
+    for label, root in order + order[::-1]:
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--child", root], capture_output=True,
                              text=True, timeout=900)
@@ -146,10 +198,9 @@ def main(argv) -> int:
         r = json.loads(out.stdout.strip().splitlines()[-1])
         r["label"] = label
         runs.append(r)
-        print(f"{label}: segscan {r['segscan']:.4f} ms, dep_stream "
-              f"{r['dep_stream']:.4f} ms, fusion {r['fusion_mpts']:.3f} "
-              f"Mpts/s, tsdf {r['tsdf_mpts']:.3f} Mpts/s ({root})",
-              flush=True)
+        times = ", ".join(f"{k} {r[k]:.4f}" for k in TIMED)
+        print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f} Mpts/s, "
+              f"tsdf {r['tsdf_mpts']:.3f} Mpts/s ({root})", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

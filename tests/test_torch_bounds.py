@@ -36,6 +36,29 @@ def test_hash_insert_bytes(U, n_new):
     assert bounds.hash_insert(U, n_new)["bytes"] == 12 * U + 4 * n_new + 4
 
 
+def test_hash_insert_counts_by_hand():
+    # 8 slots: 3 filled before; the call fills 2 more and finds 1
+    before = torch.tensor([-1, 5, -1, 9, -1, -1, 2, -1], dtype=torch.int32)
+    after = before.clone()
+    after[0], after[5] = 11, 12
+    c = bounds.hash_insert_counts(before, after)
+    assert c == {"n_new": 2, "load_before": 3 / 8, "load_after": 5 / 8}
+
+
+@pytest.mark.parametrize("shape,n,n_new", [
+    # the three call shapes of the seeded bench sweep's third batch
+    ("integrate", 148_816, 6_059),
+    ("refine", 64_820, 21_655),
+    ("tsdf", 1_244_811, 63_724)])
+def test_hash_insert_shapes_by_hand(shape, n, n_new):
+    # per id: the id read, one table word read, its slot written; per new
+    # id its table word written; the failure count
+    b = bounds.hash_insert(n, n_new)
+    want = n * 4 + n * 4 + n * 4 + n_new * 4 + 4
+    assert b["bytes"] == want and b["ops"] == 0
+    assert b["bound_ms"] == pytest.approx(want / 3.35e12 * 1e3)
+
+
 @pytest.mark.parametrize("E", [1, 208_326])
 def test_tsdf_surface_bytes(E):
     assert bounds.tsdf_surface(E)["bytes"] == E * 148

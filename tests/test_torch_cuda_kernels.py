@@ -218,6 +218,138 @@ def test_normal_fit_matches_plain(state):
     assert float((nk - nplain).abs()[:, ok_k].max()) <= 1e-5
 
 
+# a grid whose z extent (37 cells) is no multiple of 32, so that columns
+# start at every bit of a word
+K4_CFG = dict(bbox=(-0.2, 0.2, -0.15, 0.15, -0.2, 0.17), capacity_log2=16)
+
+
+def _k4_inputs(dev, k, seed=5):
+    """A grid whose occupancy is four noisy planes along its faces, and the
+    candidates: every occupied cell on a face, the first and last three
+    cells of the grid (columns whose window starts before bit 0 or ends in
+    the last word), and random occupied cells; keys at slots 0..U-1 and
+    random viewpoints."""
+    cfg = small_test_config(k_neighborhood=k,
+                            min_neighbors=(2 * k + 1) ** 2 // 2 + 1,
+                            **K4_CFG)
+    rng = np.random.default_rng(seed)
+    d0, d1, d2 = cfg.dims
+    x, y, z = np.meshgrid(np.arange(d0), np.arange(d1), np.arange(d2),
+                          indexing="ij")
+    near = lambda f: np.abs(f) < 0.7
+    occ = (near(z - 1 - 0.3 * x - 0.1 * y) | near(x - 1 - 0.2 * y - 0.1 * z)
+           | near(y - (d1 - 2) + 0.1 * x) | near(z - (d2 - 2) + 0.2 * x)
+           | (rng.random(x.shape) < 0.02)).reshape(-1)
+    occ[:3] = True
+    ids = np.arange(occ.size)
+    face = ((x == 0) | (x == d0 - 1) | (y == 0) | (y == d1 - 1) | (z == 0)
+            | (z == d2 - 1)).reshape(-1)
+    inner = ids[occ & ~face]
+    cand_ids = np.unique(np.concatenate([
+        ids[occ & face], ids[:3], ids[-3:],
+        rng.choice(inner, min(2000, inner.size), replace=False)]))
+    words = np.zeros(cfg.n_occ_words, np.uint32)
+    np.bitwise_or.at(words, ids[occ] >> 5,
+                     np.left_shift(1, ids[occ] & 31).astype(np.uint32))
+    U = cand_ids.size
+    key = np.full(cfg.capacity, -1, np.int32)
+    key[:U] = cand_ids
+    vp = np.zeros((cfg.capacity, 3), np.float32)
+    vp[:U] = rng.uniform(-0.5, 0.5, (U, 3))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    grid = dataclasses.replace(
+        make_grid(cfg, dev), key=put(key), occ_bits=put(words.view(np.int32)),
+        viewpoint=put(vp.reshape(-1)))
+    cand = torch.arange(U, dtype=torch.int32, device=dev)
+    return cfg, cand, grid
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_normal_fit_faces(dev, k):
+    """K4 against its plain version at k = 1, 2, 3 (one round of loads)
+    and 4 (rounds of 32 columns), on candidates on every face of the grid,
+    where columns fall outside it and windows start before bit 0: the
+    gate exact, the normals within 1e-5."""
+    cfg, cand, grid = _k4_inputs(dev, k)
+    gk = dataclasses.replace(grid, normal=grid.normal.clone(),
+                             normal_found=grid.normal_found.clone())
+    gp = dataclasses.replace(grid, normal=grid.normal.clone(),
+                             normal_found=grid.normal_found.clone())
+    n0 = kernels.LAUNCHES["normal_fit"]
+    nk, ok_k = refine.normal_fit(cand, gk, cfg)
+    assert kernels.LAUNCHES["normal_fit"] == n0 + 1
+    nplain, ok_p = refine.normal_fit_plain(cand, gp, cfg)
+    n_ok = int(ok_k.sum())
+    assert torch.equal(ok_k, ok_p) and 0 < n_ok < cand.numel()
+    assert torch.equal(gk.normal_found, gp.normal_found)
+    assert float((gk.normal - gp.normal).abs().max()) <= 1e-5
+    assert float((nk - nplain).abs().max()) <= 1e-5
+
+
+def _disjoint_new_ids(key, ids, max_probes):
+    """The ids none of whose first ``max_probes`` probe slots is the probe
+    slot of another id kept, so that which id claims a slot does not
+    depend on the order the ids arrive in."""
+    C = key.numel()
+    h = hashing.hash_u32(ids.cpu()).numpy()
+    j = np.arange(max_probes)
+    seq = (h[:, None] + (j * (j + 1) // 2)[None, :]) & (C - 1)
+    taken, keep = set(), []
+    for i, row in enumerate(seq.tolist()):
+        if taken.isdisjoint(row):
+            taken.update(row)
+            keep.append(i)
+    return ids[torch.tensor(keep, device=ids.device)]
+
+
+def test_hash_insert_full_table(dev):
+    """K2 into a 2^12-slot table filled to 0.9 under max_probes = 4: ids
+    already there within the bound and new ids whose probe slots are
+    disjoint.  Every placed
+    id at its slot, the same id set as the plain version, failures equal
+    to the unplaced ids, and the failures added into a passed counter
+    equal to the returned count; with all new ids racing for slots, one
+    call's failures still equal its unplaced ids."""
+    C, P = 1 << 12, 4
+    rng = np.random.default_rng(11)
+    pool = torch.from_numpy(rng.choice(2 ** 30, 3 * C, replace=False)
+                            .astype(np.int32)).to(dev)
+    table = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    hashing.insert_plain(table, pool[:int(0.9 * C)], C, C)
+    assert int((table >= 0).sum()) == int(0.9 * C)
+    # ids the fill placed within the first P probes (the rest lie beyond
+    # the bound and count as unplaced, as they would for any caller)
+    held = table[table >= 0]
+    present = held[hashing.lookup(table, held, P, C) >= 0][:500]
+    new = _disjoint_new_ids(table, pool[C:], P)
+    ids = torch.cat([present, new])
+    kk, kp, kc = table.clone(), table.clone(), table.clone()
+    sk, fk = hashing.lookup_or_insert(kk, ids, P, C)
+    sp, fp = hashing.insert_plain(kp, ids, P, C)
+    counter = torch.full((), 7, dtype=torch.int32, device=dev)
+    sc = hashing.lookup_or_insert(kc, ids, P, C, counter)
+    placed = sk >= 0
+    assert int(fk) == int(fp) == int((~placed).sum()) > 0
+    assert int(counter) == 7 + int(fk)
+    assert torch.equal(kk[sk[placed].long()], ids[placed])
+    assert torch.equal(sk, sp) and torch.equal(sc, sk)
+    assert torch.equal(torch.sort(kk).values, torch.sort(kp).values)
+    assert torch.equal(kc, kk)
+    assert bool((sk[:present.numel()] >= 0).all())
+    # every new id races: one call's failures equal its unplaced ids, and
+    # the table holds what it held and the placed ids, once each
+    race = pool[C:]
+    kr = table.clone()
+    counter.zero_()
+    sr = hashing.lookup_or_insert(kr, race, P, C, counter)
+    ok = sr >= 0
+    assert int(counter) == int((~ok).sum()) > 0
+    assert torch.equal(kr[sr[ok].long()], race[ok])
+    want = torch.cat([table[table >= 0], race[ok]])
+    assert torch.equal(torch.sort(kr[kr >= 0]).values,
+                       torch.sort(want).values)
+
+
 def _same_words(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))

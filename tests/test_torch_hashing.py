@@ -6,6 +6,7 @@ comparisons are by id."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hifi_fusion_tpu.ops import hashing as jhash
@@ -85,3 +86,37 @@ def test_probe_bound_counts_failures():
     np.testing.assert_array_equal(key[slot[placed].long()].numpy(),
                                   ids[placed].numpy())
     assert int((key >= 0).sum()) == int(placed.sum()) <= 256
+
+
+def test_counter_form_matches_returning_form():
+    """With the caller's overflow counter the plain path returns the same
+    slots and table as the returning form and adds the same failure count
+    into the counter, on top of what it held."""
+    C = 1 << 8
+    ids = torch.from_numpy(RNG.choice(2 ** 30, 300, replace=False)
+                           .astype(np.int32))
+    base = torch.full((C,), -1, dtype=torch.int32)
+    hashing.insert_plain(base, ids[:150], 8, C)
+    k_ret, k_cnt = base.clone(), base.clone()
+    slot, failed = hashing.lookup_or_insert(k_ret, ids, 8, C)
+    counter = torch.tensor(5, dtype=torch.int32)
+    slot_c = hashing.lookup_or_insert(k_cnt, ids, 8, C, counter)
+    assert int(failed) > 0 and int(counter) == 5 + int(failed)
+    assert counter.dtype == torch.int32 and counter.dim() == 0
+    np.testing.assert_array_equal(slot_c.numpy(), slot.numpy())
+    np.testing.assert_array_equal(k_cnt.numpy(), k_ret.numpy())
+    # a second call adds again; no failures add nothing
+    hashing.lookup_or_insert(k_cnt, ids, 8, C, counter)
+    assert int(counter) == 5 + 2 * int(failed)
+    big = torch.full((1 << 12,), -1, dtype=torch.int32)
+    hashing.lookup_or_insert(big, ids, 32, 1 << 12, counter)
+    assert int(counter) == 5 + 2 * int(failed)
+
+
+def test_counter_form_rejects_bad_counters():
+    key = torch.full((16,), -1, dtype=torch.int32)
+    ids = torch.arange(4, dtype=torch.int32)
+    for bad in (torch.zeros((), dtype=torch.int64),
+                torch.zeros((1,), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            hashing.lookup_or_insert(key, ids, 8, 16, bad)

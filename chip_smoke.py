@@ -9,13 +9,17 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA, no run;
-2. a fresh build of the seven CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
+2. a fresh build of the eight CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
    register / spill report;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    its main path gives it, timed on the card (``device_ms``) in the order
-   plain, kernel, kernel, plain: K1-K4 at the fusion bench config, T1-T3
-   at the TSDF config 5, and K2 at each of its three call shapes (the
+   plain, kernel, kernel, plain: K1-K4 at the fusion bench config, K5 on
+   the planar wires of a K=8 batch of that sweep (f32 points with f32
+   colour and count prefixes, as the session sends them; f32 points with
+   packed colour and a lane mask; the q16 wire), T1-T3 at the TSDF config
+   5, T3 at two shapes (the grid after two batches and the final grid of
+   the 96-frame replay), and K2 at each of its three call shapes (the
    fusion integrate, the refine's line cells and the TSDF batch, on the
    key table and ids those calls get, captured from the port's own
    paths), K2 and K4 behind a read that leaves the L2 cold, as the main
@@ -37,7 +41,17 @@ and prints no result line):
 6. the TSDF path: the config-5 ``FusionSession(model="tsdf")`` replay of
    the same sweep (0.8 mm pitch, S=11 samples, K=8 batches), then
    ``process()``; checks overflow counters, frames, unit normals, the PCD
-   and CSV files, and that T1, T2, T3 and K2 launched.
+   and CSV files, the surface count against phase 3's final grid, and
+   that T1, T2, T3 and K2 launched;
+7. the PointCloud2 ingest path: the sweep of phase 4 turned on the host
+   into ``runtime/decode.CloudFrame`` records of its valid pixels (their
+   f32 camera points, bit-identical to the card's unprojection, and their
+   8-bit colour), replayed through ``FusionSession.push_frame`` at the
+   same K and cadence, then ``process()``; checks overflow, truncation
+   and pose-failure counters, that the extract holds phase 4's cells with
+   the same cylinder and point counts, and that K5, K2, K3 and K4
+   launched.  It prints the replay's rate and the session's host decode
+   seconds.
 
 The last lines are a JSON object of per-kernel results (K2's entry holds
 its integrate shape's numbers and, under ``shapes``, every shape's), the
@@ -82,9 +96,12 @@ KERNELS = {
                    "hifi_fusion_tpu/models/tsdf.py:86"),
     "tsdf_surface": ("hifi_fusion_tpu_torch/csrc/tsdf_surface.cu",
                      "hifi_fusion_tpu/models/tsdf.py:228"),
+    "planar_frontend": ("hifi_fusion_tpu_torch/csrc/planar_frontend.cu",
+                        "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
 }
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
+PLANAR_PATH = ("planar_frontend", "hash_insert", "dep_stream", "normal_fit")
 TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
 # tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
 TSDF_PARAMS = {"n_samples": 11, "batch_unique": 1 << 21}
@@ -461,30 +478,137 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
                            lib_ms)
     del sid, svals, words, starts, cases
 
-    # T3: a grid after two batches; exact expected, gated at 1e-6 since
-    # the plain version's sqrt and divisions run in PyTorch's own CUDA
-    # kernels, outside this repository's compiler flags
+    # T3, bit-exact, at two shapes: the grid after two batches, and the
+    # final grid of the replay (every batch of the sweep), the one its
+    # real call in process() meets
     grid, (table, ids) = tsdf_state(hashing, pipe, batch, rays)
-    cell, slots = tsdf.surface_cells(grid, tcfg)
-    got = tsdf.tsdf_surface(cell, slots, grid, tcfg)
-    want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
-    err = max_err(zip(got, want))
-    exact = all(bits_equal(torch, g, w) for g, w in zip(got, want))
-    if err > 1e-6 or cell.numel() == 0:
-        raise AssertionError(f"tsdf_surface: {cell.numel()} cells, max "
-                             f"err {err} vs plain")
-    log(f"phase 3: tsdf_surface: {cell.numel()} surface cells, "
-        f"bit-exact {exact}")
-    ms, pms = time_pair(torch, tsdf.tsdf_surface, tsdf.tsdf_surface_plain,
-                        lambda: (cell, slots, grid, tcfg))
-    res["tsdf_surface"] = timed(err, ms, pms,
-                                bounds.tsdf_surface(cell.numel()))
+    final = pipe.init()
+    for i in range(len(frames) // K):
+        pipe.step_batch_depth(final, *batch(i), rays)
+    shapes = {"batch2": check_surface(torch, tcfg, grid, "batch2"),
+              "replay": check_surface(torch, tcfg, final, "replay")}
+    del final
+    res["tsdf_surface"] = {**shapes["replay"], "shapes": shapes}
 
     # K2 at the TSDF batch shape: the third batch's distinct cells into
     # the 2^24-slot table after two batches
     res["hash_insert/tsdf"] = check_insert(torch, table, ids,
                                            tcfg.base.max_probes, "tsdf")
     return res
+
+
+def check_surface(torch, tcfg, grid, shape) -> dict:
+    """T3 against its plain version, bit for bit, on the surface of
+    ``grid``; its ``timed`` entry with the surface cell count ``E``."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.models import tsdf
+    cell, slots = tsdf.surface_cells(grid, tcfg)
+    got = tsdf.tsdf_surface(cell, slots, grid, tcfg)
+    want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
+    err = max_err(zip(got, want))
+    if cell.numel() == 0 or not all(bits_equal(torch, g, w)
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"tsdf_surface {shape}: {cell.numel()} "
+                             f"cells, max err {err} vs plain")
+    ms, pms = time_pair(torch, tsdf.tsdf_surface, tsdf.tsdf_surface_plain,
+                        lambda: (cell, slots, grid, tcfg))
+    z_next = float((torch.diff(cell) == 1).float().mean())
+    log(f"phase 3: tsdf_surface {shape}: {cell.numel()} surface cells, "
+        f"bit-exact, {ms:.4f} ms; share of cells whose z+1 neighbour is "
+        f"the next surface cell {z_next:.4f}")
+    return {**timed(err, ms, pms, bounds.tsdf_surface(cell.numel())),
+            "E": int(cell.numel())}
+
+
+def rgb8(rgb565) -> np.ndarray:
+    """(n,) u16 rgb565 -> (n,3) f32 8-bit channels, as the frontends
+    expand them (x8, x4, x8)."""
+    v = rgb565.astype(np.uint32)
+    return np.stack([((v >> 11) & 0x1F) * 8, ((v >> 5) & 0x3F) * 4,
+                     (v & 0x1F) * 8], axis=1).astype(np.float32)
+
+
+def cloud_frames(frames) -> list:
+    """``(CloudFrame, pose)`` for each depth frame: the PointCloud2 record
+    of its valid pixels (depth > 0), their f32 camera points (the card's
+    unprojection, bit for bit) and their 8-bit colour."""
+    from hifi_fusion_tpu_torch.runtime.decode import make_cloud_frame
+    out = []
+    for f in frames:
+        keep = f.depth_q > 0
+        out.append((make_cloud_frame(f.points_f32[:, keep].T,
+                                     rgb8(f.rgb565[keep])), f.pose))
+    return out
+
+
+def planar_wires(torch, frames, dev) -> dict:
+    """K5's inputs for the first K=8 frames on three wires: ``{name:
+    (points, rgb, mask, poses, quant, (point, rgb, mask) bytes a lane)}``.
+    ``f32-f32-count`` is the session's (each frame's valid pixels as a
+    count prefix of f32 points and colour), ``f32-u32-bool`` every pixel
+    with packed colour and a lane mask, ``q16-u32-count`` the session's
+    lanes quantized by ``pack_frame_q16``."""
+    from hifi_fusion_tpu_torch.utils.synthetic import Frame, pack_frame_q16
+    fs = frames[:8]
+    K, N = len(fs), fs[0].depth_q.shape[0]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    keep = np.stack([f.depth_q > 0 for f in fs])
+    pts = np.zeros((K, 3, N), np.float32)
+    rgb = np.zeros((K, 3, N), np.float32)
+    counts = keep.sum(axis=1).astype(np.int32)
+    packed = []
+    for k, f in enumerate(fs):
+        n = counts[k]
+        pts[k, :, :n] = f.points_f32[:, keep[k]]
+        rgb[k, :, :n] = rgb8(f.rgb565[keep[k]]).T
+        packed.append(pack_frame_q16(Frame(
+            pts[k, :, :n].T, rgb[k, :, :n].T, f.pose, np.ones(n, bool)), N))
+    r = np.stack([rgb8(f.rgb565) for f in fs]).astype(np.uint32)  # (K,N,3)
+    poses = put(np.stack([f.pose for f in fs]))
+    return {
+        "f32-f32-count": (put(pts), put(rgb), put(counts), poses, None,
+                          (12, 12, 0)),
+        "f32-u32-bool": (put(np.stack([f.points_f32 for f in fs])),
+                         put((r[..., 0] << 16) | (r[..., 1] << 8)
+                             | r[..., 2]), put(keep), poses, None,
+                         (12, 4, 1)),
+        "q16-u32-count": (put(np.stack([p.points_q for p in packed])),
+                          put(np.stack([p.rgb_u32 for p in packed])),
+                          put(counts), poses,
+                          put(np.stack([p.quant for p in packed])),
+                          (6, 4, 0)),
+    }
+
+
+def check_planar_frontend(torch, cfg, frames, dev) -> dict:
+    """Phase 3, K5: bit-exact against its plain version on each wire of
+    ``planar_wires``, timed with its bound; the entry is the session's
+    wire, every wire's under ``wires``."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.ops import integrate
+    wires = {}
+    for name, (p, c, m, t, q, nb) in planar_wires(torch, frames,
+                                                   dev).items():
+        got = integrate.planar_frontend(p, c, m, t, cfg, q)
+        want = integrate.planar_frontend_plain(p, c, m, t, q, cfg)
+        err = max_err(zip(got, want))
+        if not all(bits_equal(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"planar_frontend {name} differs from "
+                                 f"plain: {err}")
+        n_valid = int((got[1] != integrate.INVALID_ID).sum())
+        del got, want
+        ms, pms = time_pair(
+            torch, lambda: integrate.planar_frontend(p, c, m, t, cfg, q),
+            lambda: integrate.planar_frontend_plain(p, c, m, t, q, cfg),
+            tuple)
+        wires[name] = {**timed(err, ms, pms, bounds.planar_frontend(
+            p.shape[0], p.shape[2], *nb)), "n_valid": n_valid}
+        log(f"phase 3: planar_frontend {name}: bit-exact, {n_valid} valid "
+            f"lanes of {p.shape[0]} x {p.shape[2]}, {ms:.4f} ms")
+    return {**wires["f32-f32-count"], "wires": wires}
 
 
 def segscan_yardstick(torch, scatter, tsdf, sid, svals, starts) -> float:
@@ -527,14 +651,22 @@ def read_pcd(path):
 
 
 def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
-           **session_kw):
+           clouds=None, **session_kw):
+    """A session replay of the depth ``frames`` (or, given ``clouds``,
+    ``push_frame`` of those ``(CloudFrame, pose)`` pairs), then
+    ``process()``: ``(result, replay s, process s, metrics)``."""
     from hifi_fusion_tpu_torch.runtime.session import FusionSession
     with FusionSession(cfg, device, output_dir=out_dir,
                        batch_fill_wait=fill_wait, **session_kw) as s:
         s.start()
         t0 = time.monotonic()
-        for f in frames:
-            s.push_depth_frame(f.depth_q, f.rgb565, f.pose, rays=rays_np)
+        if clouds is None:
+            for f in frames:
+                s.push_depth_frame(f.depth_q, f.rgb565, f.pose,
+                                   rays=rays_np)
+        else:
+            for frame, pose in clouds:
+                s.push_frame(frame, pose)
         if not s.drain(900):
             raise AssertionError("session did not drain")
         dt = time.monotonic() - t0
@@ -546,7 +678,7 @@ def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
         raise AssertionError(f"session integrated "
                              f"{m['frames_integrated']}/{len(frames)} "
                              f"frames, {m['dispatch_errors']} errors")
-    return r, dt, t_proc
+    return r, dt, t_proc, m
 
 
 def check_outputs(r) -> int:
@@ -580,6 +712,39 @@ def path_launches(names) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched: {missing}")
     return counts
+
+
+def planar_replay(torch, cfg, frames, depth_host, device, card) -> None:
+    """Phase 7: the depth ``frames`` as PointCloud2 records through
+    ``push_frame``; raises unless the counters stay zero and the extract
+    holds ``depth_host``'s cells with the same cylinder and point
+    counts."""
+    t0 = time.monotonic()
+    clouds = cloud_frames(frames)
+    n_pts = sum(f.n_points for f, _ in clouds)
+    t_make = time.monotonic() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        r, dt, t_proc, m = replay(torch, cfg, frames, None, device, tmp,
+                                  clouds=clouds)
+        n = check_outputs(r)
+    host = r["host"]
+    bad = {k: m[k] for k in ("pose_failures", "frames_truncated",
+                             "points_truncated") if m[k]}
+    same = np.array_equal(depth_host["cell"], host["cell"])
+    for f in ("count", "n_pts"):
+        if same and not np.array_equal(depth_host[f], host[f]):
+            bad[f] = int((depth_host[f] != host[f]).sum())
+    if not same or bad:
+        raise AssertionError(f"planar replay: {n} voxels against the depth "
+                             f"replay's {depth_host['cell'].size}, same "
+                             f"cells {same}, problems {bad}")
+    px = len(frames) * frames[0].depth_q.size
+    log(f"phase 7: planar replay of {len(frames)} PointCloud2 frames "
+        f"({n_pts} points, records made in {t_make:.3f} s) in {dt:.3f} s "
+        f"= {px / dt / 1e6:.3f} Mpts/s of pixels, {n_pts / dt / 1e6:.3f} "
+        f"Mpts/s of points ({card}); host decode {m['decode_s']:.3f} s; "
+        f"process() {t_proc:.3f} s; {n} voxels, the depth replay's cells, "
+        f"cylinder and point counts; {json.dumps(r['grid_metrics'])}")
 
 
 def tsdf_card_vs_cpu(torch, scfg, srays, sframes) -> list:
@@ -660,6 +825,8 @@ def main() -> int:
     rays = torch.from_numpy(rays_np).cuda()
     tcfg = tsdf_config(FusionConfig, TsdfConfig)
     kres = check_kernels(torch, cfg, frames, rays, torch.device("cuda"))
+    kres["planar_frontend"] = check_planar_frontend(torch, cfg, frames,
+                                                    torch.device("cuda"))
     kres.update(check_tsdf_kernels(torch, tcfg, frames, rays,
                                    torch.device("cuda")))
     for name, r in kres.items():
@@ -674,11 +841,12 @@ def main() -> int:
     # -- phase 4 -------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels.reset_launches()
-        r, dt, t_proc = replay(torch, cfg, frames, rays_np, "cuda", tmp)
+        r, dt, t_proc, _ = replay(torch, cfg, frames, rays_np, "cuda", tmp)
         fusion_launches = path_launches(FUSION_PATH)
         n = check_outputs(r)
         if n <= 20000:
             raise AssertionError(f"only {n} voxels extracted")
+    depth_host = r["host"]
     mpts = FRAMES * WIDTH * HEIGHT / dt / 1e6
     log(f"phase 4: {FRAMES} frames in {dt:.3f} s = {mpts:.3f} Mpts/s "
         f"({card}); process() {t_proc:.3f} s; {n} voxels, "
@@ -686,14 +854,15 @@ def main() -> int:
         f"{fusion_launches}; {json.dumps(r['grid_metrics'])}")
 
     # -- phase 5 -------------------------------------------------------
-    scfg = small_test_config(refine_every=4, max_batch_frames=4,
-                             z_clip=(0.05, 10.0))
     srays = camera_rays(128, 96, fx=160.0, fy=160.0)
+    scfg = small_test_config(refine_every=4, max_batch_frames=4,
+                             z_clip=(0.05, 10.0), buffer_capacity_log2=17,
+                             max_points=srays.shape[1])
     sframes = make_depth_sweep(scfg, 8, width=128, height=96, srays=srays,
                                seed=1, noise_sd=3e-4, camera_height=0.4)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        rg, _, _ = replay(torch, scfg, sframes, srays, "cuda", tmp + "/g")
-        rc, _, _ = replay(torch, scfg, sframes, srays, "cpu", tmp + "/c")
+        rg = replay(torch, scfg, sframes, srays, "cuda", tmp + "/g")[0]
+        rc = replay(torch, scfg, sframes, srays, "cpu", tmp + "/c")[0]
     problems = checks.parity_gates(rg["host"], rc["host"], len(sframes))
     common, ia, ib = np.intersect1d(rg["host"]["cell"], rc["host"]["cell"],
                                     return_indices=True)
@@ -716,26 +885,38 @@ def main() -> int:
     # -- phase 6 -------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels.reset_launches()
-        r, dt, t_proc = replay(torch, tcfg.base, frames, rays_np, "cuda",
-                               tmp, model="tsdf", model_params=TSDF_PARAMS)
+        r, dt, t_proc, _ = replay(torch, tcfg.base, frames, rays_np,
+                                  "cuda", tmp, model="tsdf",
+                                  model_params=TSDF_PARAMS)
         tsdf_launches = path_launches(TSDF_PATH)
         n = check_outputs(r)
     gm = r["grid_metrics"]
     if gm["frames"] != FRAMES:
         raise AssertionError(f"TSDF grid counted {gm['frames']} frames")
+    if n != kres["tsdf_surface"]["shapes"]["replay"]["E"]:
+        raise AssertionError(f"TSDF replay extracted {n} surface voxels, "
+                             f"phase 3's final grid "
+                             f"{kres['tsdf_surface']['shapes']['replay']}")
     mpts = FRAMES * WIDTH * HEIGHT / dt / 1e6
     log(f"phase 6: TSDF config 5, {FRAMES} frames in {dt:.3f} s = "
         f"{mpts:.3f} Mpts/s ({card}); process() {t_proc:.3f} s; {n} "
         f"surface voxels; launches {tsdf_launches}; {json.dumps(gm)}")
 
-    # launches: the sum over the two main-path runs (phases 4 and 6); K2's
-    # entry holds its integrate shape's numbers and every shape's
+    # -- phase 7 -------------------------------------------------------
+    kernels.reset_launches()
+    planar_replay(torch, cfg, frames, depth_host, "cuda", card)
+    planar_launches = path_launches(PLANAR_PATH)
+    log(f"phase 7: launches {planar_launches}")
+
+    # launches: the sum over the three main-path runs (phases 4, 6 and 7);
+    # K2's entry holds its integrate shape's numbers and every shape's
     shapes = {k.split("/")[1]: kres.pop(k) for k in list(kres)
               if k.startswith("hash_insert/")}
     kres["hash_insert"] = {**shapes["integrate"], "shapes": shapes}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": fusion_launches[name] + tsdf_launches[name],
+         "launches": (fusion_launches[name] + tsdf_launches[name]
+                      + planar_launches[name]),
          **kres[name]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(card, flush=True)

@@ -43,6 +43,21 @@ def depth_frontend(K: int, N: int) -> dict:
     return bound(px * 4 + 12 * N + K * (4 + 64) + px * 28, 30 * px)
 
 
+def planar_frontend(K: int, N: int, point_bytes: int = 12,
+                    rgb_bytes: int = 12, mask_bytes: int = 1) -> dict:
+    """K5 on K frames of N lanes: the points (12 B a lane as f32, 6 as
+    u16 with a 24 B quantization a frame), the colour (12 B as f32
+    channels, 4 packed, 2 as rgb565), the mask (1 B a lane, or a 4 B count
+    a frame with ``mask_bytes=0``) and the 4x4 poses in; world xyz, id and
+    rgb (28 B a lane) out.  ~30 f32 operations a lane (dequantize,
+    transform, cell coordinates)."""
+    px = K * N
+    per_frame = 64 + (24 if point_bytes == 6 else 0) \
+        + (4 if mask_bytes == 0 else 0)
+    return bound(px * (point_bytes + rgb_bytes + mask_bytes + 28)
+                 + K * per_frame, 30 * px)
+
+
 def hash_insert(U: int, n_new: int) -> dict:
     """K2 on U distinct ids of which ``n_new`` were not in the table: each
     id read, one table word read, the new ids' words written, U slots and

@@ -1,10 +1,10 @@
 """FusionPipeline: the port's device-side model.
 
 The counterpart of ``hifi_fusion_tpu/models/pipeline.py`` (:40-285) for the
-depth wire.  A ``FusionPipeline`` holds the config and an explicit
-``torch.device``; its grid lives on that device.  A CUDA device runs the
-kernels K1-K4 on the path, a CPU device their plain versions; there is no
-fallback from one to the other.
+depth wire and the planar wires.  A ``FusionPipeline`` holds the config
+and an explicit ``torch.device``; its grid lives on that device.  A CUDA
+device runs the kernels on the path (K1 or K5, K2-K4), a CPU device their
+plain versions; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch
 from ..config import FusionConfig
 from ..grid import GridState, grid_metrics, make_grid
 from ..ops.extract import ExtractResult, extract, to_host
-from ..ops.integrate import integrate_batch_depth, integrate_depth
+from ..ops.integrate import (integrate, integrate_batch,
+                             integrate_batch_depth, integrate_depth)
 from ..ops.refine import refine_pass
 
 
@@ -60,15 +61,33 @@ class FusionPipeline:
         """Host array -> tensor on the pipeline's device."""
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    def _refine_if_due(self, grid: GridState) -> GridState:
+        if self.config.refine_every > 0 \
+                and refine_due(int(grid.frames), 1, self.config):
+            grid = self.refine(grid)
+        return grid
+
+    def step(self, grid: GridState, points, rgb, mask, pose,
+             quant=None) -> GridState:
+        """One planar frame (``ops/integrate.integrate``'s wires), then a
+        refine when a mark falls on it (JAX ``fusion_step``)."""
+        grid = integrate(grid, points, rgb, mask, pose, self.config, quant)
+        return self._refine_if_due(grid)
+
+    def step_batch(self, grid: GridState, points, rgb, mask, poses,
+                   quant=None) -> GridState:
+        """K planar frames; no refine (JAX ``integrate_batch``: the caller
+        fires ``refine`` when ``refine_due`` says a mark fell in the
+        batch)."""
+        return integrate_batch(grid, points, rgb, mask, poses, self.config,
+                               quant)
+
     def step_depth(self, grid: GridState, depth, rgb565, count, pose,
                    rays) -> GridState:
         """One depth frame, then a refine when a mark falls on it."""
         grid = integrate_depth(grid, depth, rgb565, count, pose, rays,
                                self.config)
-        if self.config.refine_every > 0 \
-                and refine_due(int(grid.frames), 1, self.config):
-            grid = self.refine(grid)
-        return grid
+        return self._refine_if_due(grid)
 
     def step_batch_depth(self, grid: GridState, depth, rgb565, counts,
                          poses, rays) -> GridState:

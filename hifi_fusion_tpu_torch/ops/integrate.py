@@ -1,11 +1,15 @@
-"""K-frame batched integration of sensor-native depth frames.
+"""K-frame batched integration of depth frames and planar point clouds.
 
 The counterpart of ``integrate_frame_impl`` in
-``hifi_fusion_tpu/ops/integrate.py`` for the depth wire (u16 z-depth,
-rgb565, per-frame counts, poses, a resident ray table).  One batch:
+``hifi_fusion_tpu/ops/integrate.py`` for two families of wires: the depth
+wire (u16 z-depth, rgb565, per-frame counts, poses, a resident ray table)
+and the planar wires of ``_unpack_inputs`` (integrate.py:110-175): f32 or
+u16-quantized (K,3,N) camera points, f32, packed u32 or rgb565 colour, and
+a (K,N) lane mask or a (K,) count prefix.  One batch:
 
-1. the depth frontend, kernel K1 (``depth_frontend``): unproject, clip,
-   transform, cell id, colour;
+1. a frontend: kernel K1 (``depth_frontend``) for the depth wire, kernel
+   K5 (``planar_frontend``) for the planar wires; each unprojects or
+   dequantizes, clips, transforms, takes the cell id and expands colour;
 2. one stable sort by cell id, invalid lanes last; lanes stay frame-major
    within a cell, so a cell's first lane belongs to its earliest frame;
 3. the unique cells, found or inserted with kernel K2
@@ -18,8 +22,12 @@ rgb565, per-frame counts, poses, a resident ray table).  One batch:
    ``overflow_buf``;
 6. the dependant stream, kernel K3 (``dep_stream``), at the full width D.
 
-Every accumulator is a sum, so the batch equals K sequential frames up to
-f32 addition order.  Stages 2-5 are plain PyTorch in this slice.
+Stages 2-6 (``integrate_lanes``) do not know the wire.  Every accumulator
+is a sum, so the batch equals K sequential frames up to f32 addition
+order.  Stages 2-5 are plain PyTorch.  As on the depth wire, the only lane
+budget is the active one (NA = K * max_active_points); the JAX package's
+unique and hit budgets (``batch_lane_budgets``) never bind here
+(``overflow_unique`` and ``overflow_hits`` stay 0, grid.py).
 """
 
 from __future__ import annotations
@@ -40,26 +48,40 @@ def _u16_to_i32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
-def depth_frontend_plain(depth, rgb565, counts, poses, rays, config):
-    K, N = depth.shape
+def _rgb565(v: torch.Tensor) -> torch.Tensor:
+    """(...) int32 rgb565 words -> (3, ...) f32 (x8, x4, x8)."""
     f32 = torch.float32
-    d = _u16_to_i32(depth)                                  # (K,N)
-    pc = d.to(f32)[:, None, :] * rays[None]                 # (K,3,N)
-    lane = torch.arange(N, device=depth.device, dtype=torch.int32)
-    zmin, zmax = (torch.tensor(z, dtype=f32, device=depth.device)
+    return torch.stack([((v >> 11) & 0x1F).to(f32) * 8.0,
+                        ((v >> 5) & 0x3F).to(f32) * 4.0,
+                        (v & 0x1F).to(f32) * 8.0], dim=0)
+
+
+def _clip_transform_id(pc, valid_k, poses, config):
+    """The frontend's common tail on (K,3,N) camera points and a (K,N)
+    lane mask: camera-z clip, pose transform, strict bbox, cell coords and
+    their validity -> ``(world (3,K,N) f32, ids (K,N) i32)``, INT32_MAX
+    where invalid."""
+    f32 = torch.float32
+    zmin, zmax = (torch.tensor(z, dtype=f32, device=pc.device)
                   for z in config.z_clip)
-    valid_k = ((lane[None, :] < counts[:, None]) & (d > 0)
-               & (pc[:, 2] > zmin) & (pc[:, 2] < zmax))
+    valid_k = valid_k & (pc[:, 2] > zmin) & (pc[:, 2] < zmax)
     world = geometry.transform_points(pc, poses).transpose(0, 1)  # (3,K,N)
     coords = geometry.cell_coords(world, config)
     valid = (valid_k & geometry.valid_points(world, config)
              & geometry.valid_coords(coords, config))
     ids = torch.where(valid, geometry.cell_id(coords, config),
                       torch.full_like(valid, INVALID_ID, dtype=torch.int32))
-    v = _u16_to_i32(rgb565)
-    rgb = torch.stack([((v >> 11) & 0x1F).to(f32) * 8.0,
-                       ((v >> 5) & 0x3F).to(f32) * 4.0,
-                       (v & 0x1F).to(f32) * 8.0], dim=0)     # (3,K,N)
+    return world, ids
+
+
+def depth_frontend_plain(depth, rgb565, counts, poses, rays, config):
+    K, N = depth.shape
+    d = _u16_to_i32(depth)                                  # (K,N)
+    pc = d.to(torch.float32)[:, None, :] * rays[None]       # (K,3,N)
+    lane = torch.arange(N, device=depth.device, dtype=torch.int32)
+    world, ids = _clip_transform_id(
+        pc, (lane[None, :] < counts[:, None]) & (d > 0), poses, config)
+    rgb = _rgb565(_u16_to_i32(rgb565))                      # (3,K,N)
     M = K * N
     return world.reshape(3, M), ids.reshape(M), rgb.reshape(3, M)
 
@@ -106,6 +128,112 @@ def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
         "depth_frontend")
     kernels.LAUNCHES["depth_frontend"] += 1
     return world, ids, rgb
+
+
+# point wires and colour wires of the planar frontend, as the kernel's
+# template arguments number them (csrc/planar_frontend.cu)
+POINT_WIRES = {torch.float32: 0, torch.uint16: 1}
+RGB_WIRES = {torch.float32: 0, torch.uint32: 1, torch.uint16: 2}
+
+
+def planar_frontend_plain(points, rgb, mask, poses, quant, config):
+    K, _, N = points.shape
+    f32 = torch.float32
+    if points.dtype == torch.uint16:
+        pc = (_u16_to_i32(points).to(f32) * quant[:, 0, :, None]
+              + quant[:, 1, :, None])
+    else:
+        pc = points
+    if mask.dim() == 1:
+        lane = torch.arange(N, device=points.device, dtype=torch.int32)
+        mask = lane[None, :] < mask[:, None]
+    world, ids = _clip_transform_id(pc, mask, poses, config)
+    if rgb.dtype == torch.float32:
+        rgb3 = rgb.transpose(0, 1)                          # (3,K,N)
+    elif rgb.dtype == torch.uint16:
+        rgb3 = _rgb565(_u16_to_i32(rgb))
+    else:
+        v = rgb.view(torch.int32)
+        rgb3 = torch.stack([((v >> 16) & 0xFF).to(f32),
+                            ((v >> 8) & 0xFF).to(f32),
+                            (v & 0xFF).to(f32)], dim=0)
+    M = K * N
+    return (world.reshape(3, M), ids.reshape(M),
+            rgb3.reshape(3, M).contiguous())
+
+
+def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
+                    mask: torch.Tensor, poses: torch.Tensor,
+                    config: FusionConfig, quant: torch.Tensor = None):
+    """The planar wires of K frames -> ``(world (3,K*N) f32, ids (K*N,)
+    i32 with INT32_MAX where invalid, rgb (3,K*N) f32)``, lanes
+    frame-major, as ``depth_frontend`` returns them.
+
+    * ``points``: (K,3,N) f32 camera points, or (K,3,N) u16 with
+      ``quant`` (2,3) or (K,2,3) f32 [scale, offset], dequantized as
+      ``q * scale + offset`` (exact under ``pack_frame_q16``'s power-of-two
+      scales);
+    * ``rgb``: (K,3,N) f32, (K,N) u32 packed 0xRRGGBB, or (K,N) u16 5:6:5;
+    * ``mask``: (K,N) bool lane validity, or (K,) i32 count prefixes;
+    * ``poses``: (K,4,4) f32.
+
+    Kernel K5 on CUDA tensors, its plain version on CPU tensors;
+    bit-identical."""
+    if points.dim() != 3 or points.shape[1] != 3:
+        raise ValueError(f"points: expected (K,3,N), got "
+                         f"{tuple(points.shape)}")
+    K, _, N = points.shape
+    dev = points.device
+    if points.dtype not in POINT_WIRES:
+        raise ValueError(f"points: f32 or u16, got {points.dtype}")
+    if rgb.dtype not in RGB_WIRES:
+        raise ValueError(f"rgb: f32, u32 or u16, got {rgb.dtype}")
+    q16 = points.dtype == torch.uint16
+    if q16 != (quant is not None):
+        raise ValueError("u16 points need quant (2,3) or (K,2,3); f32 "
+                         "points take none")
+    if q16 and tuple(quant.shape) == (2, 3):
+        quant = quant[None].expand(K, 2, 3).contiguous()
+    checks = [("points", points, points.dtype, (K, 3, N)),
+              ("rgb", rgb, rgb.dtype,
+               (K, 3, N) if rgb.dtype == torch.float32 else (K, N)),
+              ("mask", mask, mask.dtype,
+               (K, N) if mask.dtype == torch.bool else (K,)),
+              ("poses", poses, torch.float32, (K, 4, 4))]
+    if mask.dtype not in (torch.bool, torch.int32):
+        raise ValueError(f"mask: bool lanes or i32 counts, got "
+                         f"{mask.dtype}")
+    if q16:
+        checks.append(("quant", quant, torch.float32, (K, 2, 3)))
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+    if dev.type == "cpu":
+        return planar_frontend_plain(points, rgb, mask, poses, quant,
+                                     config)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    M = K * N
+    world = torch.empty((3, M), dtype=torch.float32, device=dev)
+    ids = torch.empty((M,), dtype=torch.int32, device=dev)
+    rgb_out = torch.empty((3, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return world, ids, rgb_out
+    gf, gi = kernels.geometry_args(config)
+    lib = kernels.library()
+    kernels.check(lib.launch_planar_frontend(
+        points.data_ptr(), POINT_WIRES[points.dtype],
+        quant.data_ptr() if q16 else None, rgb.data_ptr(),
+        RGB_WIRES[rgb.dtype], mask.data_ptr(),
+        int(mask.dtype == torch.bool), poses.data_ptr(), K, N,
+        kernels.ptr(gf), kernels.ptr(gi), float(config.z_clip[0]),
+        float(config.z_clip[1]), world.data_ptr(), ids.data_ptr(),
+        rgb_out.data_ptr(), kernels.stream()), "planar_frontend")
+    kernels.LAUNCHES["planar_frontend"] += 1
+    return world, ids, rgb_out
 
 
 def cylinder_add(cyl_stats: torch.Tensor, owner: torch.Tensor,
@@ -180,22 +308,21 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def integrate_batch_depth(grid: GridState, depth: torch.Tensor,
-                          rgb565: torch.Tensor, counts: torch.Tensor,
-                          poses: torch.Tensor, rays: torch.Tensor,
-                          config: FusionConfig) -> GridState:
-    """Integrate K depth frames ((K,N) u16 depth and rgb565, (K,) i32
-    counts, (K,4,4) f32 poses) into ``grid`` in place; returns ``grid``.
-    No refine: the caller fires ``refine_pass`` when ``refine_due`` says a
-    mark fell inside the batch."""
-    K, N = depth.shape
+def integrate_lanes(grid: GridState, world: torch.Tensor,
+                    ids: torch.Tensor, rgb: torch.Tensor,
+                    poses: torch.Tensor, K: int, N: int,
+                    config: FusionConfig) -> GridState:
+    """Stages 2-6 of a K-frame batch on a frontend's frame-major lanes
+    ((3,K*N) f32 world points, (K*N,) i32 ids with INT32_MAX where
+    invalid, (3,K*N) f32 rgb) and the batch's (K,4,4) poses, into ``grid``
+    in place; returns ``grid``.  No refine: the caller fires
+    ``refine_pass`` when ``refine_due`` says a mark fell inside the
+    batch."""
     M = K * N
     C = config.capacity
     B = config.buffer_capacity
     f32 = torch.float32
 
-    world, ids, rgb = depth_frontend(depth, rgb565, counts, poses, rays,
-                                     config)
     sid, order = torch.sort(ids, stable=True)
     n_act = int((sid != INVALID_ID).sum())
     NA = min(K * config.max_active_points, M)    # active-lane budget
@@ -245,6 +372,42 @@ def integrate_batch_depth(grid: GridState, depth: torch.Tensor,
     dep_stream(pts, slot_pt, grid, config)
     grid.frames += K
     return grid
+
+
+def integrate_batch_depth(grid: GridState, depth: torch.Tensor,
+                          rgb565: torch.Tensor, counts: torch.Tensor,
+                          poses: torch.Tensor, rays: torch.Tensor,
+                          config: FusionConfig) -> GridState:
+    """Integrate K depth frames ((K,N) u16 depth and rgb565, (K,) i32
+    counts, (K,4,4) f32 poses) into ``grid`` in place; returns ``grid``."""
+    K, N = depth.shape
+    world, ids, rgb = depth_frontend(depth, rgb565, counts, poses, rays,
+                                     config)
+    return integrate_lanes(grid, world, ids, rgb, poses, K, N, config)
+
+
+def integrate_batch(grid: GridState, points: torch.Tensor,
+                    rgb: torch.Tensor, mask: torch.Tensor,
+                    poses: torch.Tensor, config: FusionConfig,
+                    quant: torch.Tensor = None) -> GridState:
+    """Integrate K planar frames (the wires of ``planar_frontend``) into
+    ``grid`` in place; returns ``grid``.  The counterpart of the JAX
+    package's ``models/pipeline.integrate_batch``."""
+    K, _, N = points.shape
+    world, ids, rgb3 = planar_frontend(points, rgb, mask, poses, config,
+                                       quant)
+    return integrate_lanes(grid, world, ids, rgb3, poses, K, N, config)
+
+
+def integrate(grid: GridState, points: torch.Tensor, rgb: torch.Tensor,
+              mask: torch.Tensor, pose: torch.Tensor, config: FusionConfig,
+              quant: torch.Tensor = None) -> GridState:
+    """One planar frame ((3,N) f32 or u16 points, (3,N) f32 or (N,) u32 /
+    u16 rgb, (N,) bool mask or 0-d i32 count, (4,4) pose, (2,3) quant for
+    u16 points): the K=1 batch."""
+    mask = mask.reshape(1) if mask.dim() == 0 else mask[None]
+    return integrate_batch(grid, points[None], rgb[None], mask, pose[None],
+                           config, quant)
 
 
 def integrate_depth(grid: GridState, depth: torch.Tensor,

@@ -1,4 +1,4 @@
-"""FusionSession: the port's host runtime, for sensor-native depth frames.
+"""FusionSession: the port's host runtime, for point clouds and depth frames.
 
 A lean counterpart of ``hifi_fusion_tpu/runtime/session.py`` with the same
 contract:
@@ -6,8 +6,16 @@ contract:
 * ``start()`` / ``stop()`` gate frame ingestion (queued frames still drain);
 * ``reset(full=False)`` stops and drops the input queue, keeping the grid
   (``full=True`` also clears the grid);
+* ``push_frame(frame, pose=None)`` queues one PointCloud2-style
+  ``runtime/decode.CloudFrame`` (the subscriber callback).  Without a pose
+  it asks ``pose_provider(frame)``; a lookup that raises drops the frame
+  and counts it in ``pose_failures``.  The worker decodes it on the host
+  (``decode.decode_frame``), cuts it to ``max_points`` (counted in
+  ``frames_truncated`` / ``points_truncated``) and integrates it through
+  the planar frontend, kernel K5;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
   (u16 z-depth, rgb565, camera pose; the (3,N) ray table on first use);
+  a frame wider than ``max_points`` is cut and counted the same way;
 * ``drain()`` waits until the queue is empty and the device is idle;
 * ``process()`` drains, runs the final refine, extracts, writes
   ``test_cloud.pcd`` and ``meta.csv`` to ``output_dir``, then clears the
@@ -19,7 +27,8 @@ TSDF-weighted family, ``models/tsdf.TsdfPipeline``; ``model_params`` feeds
 its ``TsdfConfig``: truncation, n_samples, min_weight, surface_band,
 batch_unique).  The TSDF family has no refine phase (its ``refine`` is a
 no-op); its export maps the surface onto the same PCD and CSV columns
-(tsdf.py:380-410).
+(tsdf.py:380-410).  It takes depth frames only: its ``push_frame`` raises
+(the planar TSDF step is ROADMAP A8b).
 
 One worker thread pops frames from a bounded drop-oldest queue.  With
 ``batch_fill_wait > 0`` (replay sources that outrun the device) it waits
@@ -27,6 +36,7 @@ up to that long for a full K-batch and integrates K frames at once; K is
 the largest value <= ``max_batch_frames`` that divides both
 ``refine_every`` and ``refine_first``, so a batch never spans a refine
 mark and batched and single-stepped sessions refine at the same frames.
+A batch holds frames of one kind (clouds, or depth frames of one width).
 With 0 (live sources) every frame is stepped alone.
 """
 
@@ -37,7 +47,7 @@ import logging
 import os
 import threading
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -46,6 +56,7 @@ from ..config import FusionConfig
 from ..io import pcd
 from ..models.pipeline import FusionPipeline, refine_due
 from ..models.tsdf import TsdfConfig, TsdfPipeline
+from .decode import CloudFrame, decode_frame
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
 
@@ -66,8 +77,11 @@ class FusionSession:
     def __init__(self, config: FusionConfig, device,
                  output_dir: str = ".", queue_depth: int = 100,
                  final_refine: bool = True, batch_fill_wait: float = 0.0,
-                 model: str = "fusion", model_params: Dict = None):
+                 model: str = "fusion", model_params: Dict = None,
+                 pose_provider: Optional[Callable] = None):
         self.config = config.validate()
+        self.model = model
+        self.pose_provider = pose_provider
         if model == "fusion":
             self.pipeline = FusionPipeline(config, device)
         elif model == "tsdf":
@@ -94,6 +108,10 @@ class FusionSession:
         self._frames_in = 0
         self._frames_integrated = 0
         self._frames_dropped = 0
+        self._pose_failures = 0
+        self._frames_truncated = 0   # frames cut to max_points
+        self._points_truncated = 0   # points cut from them
+        self._decode_s = 0.0         # host decode of cloud frames
         self._t_first = None
         self._t_last = None
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -156,6 +174,32 @@ class FusionSession:
                 "grid_metrics": metrics, "host": host}
 
     # -- ingestion --------------------------------------------------------
+    def push_frame(self, frame: CloudFrame,
+                   pose: Optional[np.ndarray] = None) -> bool:
+        """Queue one point cloud with its (4,4) camera pose, or the pose
+        ``pose_provider(frame)`` gives.  Returns False when ingestion is
+        gated or the pose lookup failed (the frame is dropped and counted
+        in ``pose_failures``, as the reference drops it with a warning,
+        FUSION.cpp:340-344)."""
+        if self.model != "fusion":
+            raise NotImplementedError(
+                f"push_frame: the {self.model!r} model takes depth frames "
+                f"only (push_depth_frame); its planar step is ROADMAP A8b")
+        self._frames_in += 1
+        if not self._started:
+            return False
+        if pose is None:
+            if self.pose_provider is None:
+                raise ValueError("no pose given and no pose_provider set")
+            try:
+                pose = self.pose_provider(frame)
+            except Exception as e:
+                self._pose_failures += 1
+                log.warning("pose lookup failed, dropping frame: %s", e)
+                return False
+        self._enqueue(("cloud", frame, np.asarray(pose, np.float32)))
+        return True
+
     def push_depth_frame(self, depth_q: np.ndarray, rgb565: np.ndarray,
                          pose: np.ndarray, rays: np.ndarray = None) -> bool:
         """Queue one u16 z-depth image + rgb565 + (4,4) camera pose.
@@ -169,18 +213,30 @@ class FusionSession:
             if rays is None:
                 raise ValueError("push_depth_frame needs rays on first call")
             self._rays = self.pipeline.put(np.asarray(rays, np.float32))
+        self._enqueue(("depth", np.asarray(depth_q, np.uint16),
+                       np.asarray(rgb565, np.uint16),
+                       np.asarray(pose, np.float32)))
+        return True
+
+    def _enqueue(self, item) -> None:
         with self._qlock:
             if len(self._queue) == self._queue.maxlen:
                 self._frames_dropped += 1
-            self._queue.append((np.asarray(depth_q, np.uint16),
-                                np.asarray(rgb565, np.uint16),
-                                np.asarray(pose, np.float32)))
+            self._queue.append(item)
         self._wake.set()
-        return True
 
     # -- worker -----------------------------------------------------------
+    @staticmethod
+    def _shape(item):
+        """Frames batch together only when their shapes agree: a cloud is
+        padded to ``max_points`` on decode, a depth frame keeps its
+        width."""
+        return ("cloud",) if item[0] == "cloud" else ("depth",
+                                                      item[1].shape)
+
     def _pop_items(self):
-        """One frame, or a K-batch when it starts at a K-aligned frame."""
+        """One frame, or a K-batch of frames of one kind and shape when it
+        starts at a K-aligned frame."""
         kb = self._kb
         if kb > 1:
             deadline = time.monotonic() + self._batch_fill_wait
@@ -196,7 +252,7 @@ class FusionSession:
             self._busy = True
             if (kb > 1 and len(self._queue) >= kb
                     and self._frames_integrated % kb == 0
-                    and len({f[0].shape for f in
+                    and len({self._shape(f) for f in
                              list(self._queue)[:kb]}) == 1):
                 return [self._queue.popleft() for _ in range(kb)]
             return [self._queue.popleft()]
@@ -211,26 +267,69 @@ class FusionSession:
             return True
         return not refine_due(f, 1, self.config)
 
+    def _truncate(self, n: int, k: int, what: str) -> int:
+        """The lanes kept of ``k`` frames of ``n`` points; frames wider than
+        ``max_points`` are cut and counted (JAX session.py:606-648)."""
+        cap = self.config.max_points
+        if n > cap:
+            self._frames_truncated += k
+            self._points_truncated += (n - cap) * k
+            log.warning("%s has %d points > max_points=%d; truncating "
+                        "(%d dropped x %d frames)", what, n, cap, n - cap, k)
+        return min(n, cap)
+
+    def _decode_planar(self, items):
+        """Host decode of K cloud frames into the planar wire: (K,3,N) f32
+        points and rgb padded to N = ``max_points`` and (K,) i32 count
+        prefixes."""
+        t0 = time.monotonic()
+        N = self.config.max_points
+        k = len(items)
+        pts = np.zeros((k, 3, N), np.float32)
+        rgb = np.zeros((k, 3, N), np.float32)
+        counts = np.zeros((k,), np.int32)
+        for i, (_, frame, _) in enumerate(items):
+            xyz, col = decode_frame(
+                frame, blue_shift_bug=self.config.bug_compat_blue_shift)
+            n = self._truncate(xyz.shape[0], 1, "frame")
+            pts[i, :, :n] = xyz[:n].T
+            rgb[i, :, :n] = col[:n].T
+            counts[i] = n
+        self._decode_s += time.monotonic() - t0
+        return pts, rgb, counts
+
     def _dispatch(self, items) -> None:
         cfg = self.config
         k = len(items)
-        n = min(items[0][0].shape[-1], cfg.max_points)
         put = self.pipeline.put
-        depth = put(np.stack([f[0][:n] for f in items]))
-        rgb = put(np.stack([f[1][:n] for f in items]))
-        counts = put(np.full((k,), n, np.int32))
-        poses = put(np.stack([f[2] for f in items]))
-        rays = self._rays[:, :n].contiguous()
-        with self._glock:
-            if k == 1:
-                self._grid = self.pipeline.step_depth(
-                    self._grid, depth[0], rgb[0], counts[0], poses[0], rays)
-            else:
-                self._grid = self.pipeline.step_batch_depth(
-                    self._grid, depth, rgb, counts, poses, rays)
-                if cfg.refine_every > 0 and refine_due(
-                        self._frames_integrated + k, k, cfg):
-                    self._grid = self.pipeline.refine(self._grid)
+        poses = put(np.stack([f[-1] for f in items]))
+        if items[0][0] == "cloud":
+            pts, rgb, counts = map(put, self._decode_planar(items))
+            with self._glock:
+                if k == 1:
+                    self._grid = self.pipeline.step(
+                        self._grid, pts[0], rgb[0], counts[0], poses[0])
+                else:
+                    self._grid = self.pipeline.step_batch(
+                        self._grid, pts, rgb, counts, poses)
+        else:
+            n = self._truncate(items[0][1].shape[-1], k, "depth frame")
+            depth = put(np.stack([f[1][:n] for f in items]))
+            rgb = put(np.stack([f[2][:n] for f in items]))
+            counts = put(np.full((k,), n, np.int32))
+            rays = self._rays[:, :n].contiguous()
+            with self._glock:
+                if k == 1:
+                    self._grid = self.pipeline.step_depth(
+                        self._grid, depth[0], rgb[0], counts[0], poses[0],
+                        rays)
+                else:
+                    self._grid = self.pipeline.step_batch_depth(
+                        self._grid, depth, rgb, counts, poses, rays)
+        if k > 1 and cfg.refine_every > 0 and refine_due(
+                self._frames_integrated + k, k, cfg):
+            with self._glock:
+                self._grid = self.pipeline.refine(self._grid)
         now = time.monotonic()
         if self._t_first is None:
             self._t_first = now
@@ -280,6 +379,10 @@ class FusionSession:
             "frames_integrated": self._frames_integrated,
             "frames_dropped_backpressure": self._frames_dropped,
             "dispatch_errors": len(self._errors),
+            "pose_failures": self._pose_failures,
+            "frames_truncated": self._frames_truncated,
+            "points_truncated": self._points_truncated,
+            "decode_s": self._decode_s,
             "frames_per_s": ((self._frames_integrated - 1) / dt
                              if dt > 0 else None),
         })

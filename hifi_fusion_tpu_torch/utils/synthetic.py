@@ -1,12 +1,18 @@
-"""Synthetic sensor-native depth sweeps (numpy only).
+"""Synthetic eye-in-hand sweeps (numpy only).
 
-A copy of the depth half of ``hifi_fusion_tpu/utils/synthetic.py``: the
-wavy surface patch observed as organized u16 z-depth images with rgb565
-colour, as a RealSense-class camera emits them.  The port cannot import the
-JAX package's module (that import pulls in ``jax``), so the code is
-copied; ``tests/test_torch_config_synthetic.py`` checks that both give
-byte-identical sweeps for one seed.  All randomness comes from
-``np.random.default_rng(seed)``.
+A copy of ``hifi_fusion_tpu/utils/synthetic.py``'s two halves:
+
+* the planar half (``Frame``, ``make_sweep``, ``PackedFrame``,
+  ``pack_frame_q16``, ``pad_frame``): a wavy surface patch sampled in the
+  fusion frame and observed, one shifted window a frame, from a camera
+  pose inside the reference clip window, as (N,3) camera-frame points;
+* the depth half: the same surface observed as organized u16 z-depth
+  images with rgb565 colour, as a RealSense-class camera emits them.
+
+The port cannot import the JAX package's module (that import pulls in
+``jax``), so the code is copied; ``tests/test_torch_config_synthetic.py``
+checks that both give byte-identical frames for one seed.  All randomness
+comes from ``np.random.default_rng(seed)``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,131 @@ def _look_down_pose(cx: float, cy: float, cz: float) -> np.ndarray:
     pose[:3, 3] = [cx, cy, cz]
     return pose
 
+
+# -- the planar half ---------------------------------------------------------
+
+@dataclasses.dataclass
+class Frame:
+    points_cam: np.ndarray  # (N,3) f32
+    rgb: np.ndarray         # (N,3) f32
+    pose: np.ndarray        # (4,4) f32 fusion_T_camera
+    mask: np.ndarray        # (N,)  bool
+
+
+def make_sweep(config: FusionConfig,
+               n_frames: int,
+               points_per_frame: int,
+               seed: int = 0,
+               noise_sd: float = 3e-4,
+               surface_frac: float = 0.5,
+               camera_height: float = 0.4) -> List[Frame]:
+    """A sweep over a wavy surface z = z0 + a*sin*cos patch.  Camera-frame
+    points come from the inverse pose applied in f64, so f32 forward
+    transforms land within ~1e-7 m of the intended world samples."""
+    rng = np.random.default_rng(seed)
+    b = config.bbox
+    xr = (b[1] - b[0]) * surface_frac
+    yr = (b[3] - b[2]) * surface_frac
+    x0 = (b[0] + b[1]) / 2 - xr / 2
+    y0 = (b[2] + b[3]) / 2 - yr / 2
+    z0 = b[4] + 0.35 * (b[5] - b[4])
+    amp = 0.06 * (b[5] - b[4])
+
+    frames = []
+    for f in range(n_frames):
+        # a sliding window over the surface (eye-in-hand sweep)
+        u = rng.random(points_per_frame)
+        v = rng.random(points_per_frame)
+        wx = x0 + xr * (0.25 + 0.5 * f / max(n_frames - 1, 1)
+                        ) + 0.25 * xr * (u - 0.5) * 2
+        wy = y0 + yr * (0.5 + 0.45 * (v - 0.5) * 2)
+        wz = (z0 + amp * np.sin(7.0 * wx) * np.cos(5.0 * wy)
+              + rng.normal(0.0, noise_sd, points_per_frame))
+        world = np.stack([wx, wy, wz], axis=-1)
+
+        cx = np.mean(wx)
+        cy = np.mean(wy)
+        pose = _look_down_pose(cx, cy, z0 + camera_height)
+        inv = np.linalg.inv(pose)
+        pts_cam = (world @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32)
+
+        rgb = rng.integers(0, 256, (points_per_frame, 3)).astype(np.float32)
+        frames.append(Frame(
+            points_cam=pts_cam,
+            rgb=rgb,
+            pose=pose.astype(np.float32),
+            mask=np.ones(points_per_frame, bool),
+        ))
+    return frames
+
+
+@dataclasses.dataclass
+class PackedFrame:
+    """The q16 wire format: 10 B a point instead of ``pad_frame``'s 25 B
+    (u16 quantized points, a per-axis [scale, offset], packed u32 rgb and
+    a count prefix); the device frontend dequantizes and unpacks."""
+    points_q: np.ndarray   # (3,N) u16 quantized camera-frame points
+    quant: np.ndarray      # (2,3) f32: [scale, offset] per axis
+    rgb_u32: np.ndarray    # (N,)  u32 packed 0xRRGGBB
+    count: int             # number of valid points (prefix)
+    pose: np.ndarray       # (4,4) f32
+    points_f32: np.ndarray  # (3,N) f32 dequantized points: exactly what
+    #                         the device reconstructs
+
+
+def pack_frame_q16(frame: Frame, n_max: int) -> PackedFrame:
+    """Quantize a frame to the u16 wire format, bit-reproducibly.
+
+    The per-axis scale is a power of two >= range/65535, so ``q * scale``
+    is exact (q < 2^16) and ``q * scale + offset`` rounds once, the same
+    with or without a fused multiply-add; ``points_f32`` is that
+    dequantization, the values every consumer must agree on."""
+    n = frame.points_cam.shape[0]
+    if n > n_max:
+        raise ValueError(f"frame has {n} points > max_points {n_max}")
+    pts = frame.points_cam.astype(np.float32)      # (N,3)
+    lo = pts.min(axis=0)
+    rng = pts.max(axis=0) - lo
+    # scale = 2^ceil(log2(range/65535)); degenerate axes get scale 2^-24
+    exp = np.where(rng > 0, np.ceil(np.log2(np.maximum(rng, 1e-30)
+                                            / 65535.0)), -24.0)
+    scale = np.exp2(exp).astype(np.float32)
+    offset = lo.astype(np.float32)
+    q = np.clip(np.rint((pts - offset) / scale), 0, 65535).astype(np.uint16)
+    pq = np.zeros((3, n_max), np.uint16)
+    pq[:, :n] = q.T
+    # dequantize the padded array so points_f32 matches the device lane
+    # for lane (padding lanes dequantize to the offset; masked anyway)
+    pf = pq.astype(np.float32) * scale[:, None] + offset[:, None]
+    r = frame.rgb.astype(np.uint32)
+    rgb_u32 = np.zeros((n_max,), np.uint32)
+    rgb_u32[:n] = (r[:, 0] << 16) | (r[:, 1] << 8) | r[:, 2]
+    return PackedFrame(
+        points_q=pq,
+        quant=np.stack([scale, offset]).astype(np.float32),
+        rgb_u32=rgb_u32,
+        count=n,
+        pose=frame.pose.astype(np.float32),
+        points_f32=pf,
+    )
+
+
+def pad_frame(frame: Frame, n_max: int) -> Frame:
+    """Pad a frame to the static lane budget with masked lanes, in the
+    device's planar layout: points_cam and rgb become (3, n_max)."""
+    n = frame.points_cam.shape[0]
+    if n > n_max:
+        raise ValueError(f"frame has {n} points > max_points {n_max}")
+    pts = np.zeros((3, n_max), np.float32)
+    rgb = np.zeros((3, n_max), np.float32)
+    mask = np.zeros(n_max, bool)
+    pts[:, :n] = frame.points_cam.T
+    rgb[:, :n] = frame.rgb.T
+    mask[:n] = frame.mask
+    return Frame(points_cam=pts, rgb=rgb, pose=frame.pose, mask=mask)
+
+
+# -- the depth half ----------------------------------------------------------
 
 @dataclasses.dataclass
 class DepthFrame:

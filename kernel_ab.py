@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times kernels K2 (at its three call shapes), K4, T1 and K3, and the two
-replays, of two or more checkouts of the PyTorch port on one CUDA card, in
-the order A, B, ..., ..., B, A.
+"""Times kernels K2 (at its three call shapes), K4, T1, K3, T3 (at two
+shapes) and K5, and the replays, of two or more checkouts of the PyTorch
+port on one CUDA card, in the order A, B, ..., ..., B, A.
 
     python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
 
@@ -21,8 +21,14 @@ JSON line.  The inputs are built through that checkout's own paths, with
 * ``segscan``: T1 (kind add) on the batch's sorted sample lanes at TSDF
   config 5 (6 x 27,033,600 lanes);
 * ``dep_stream``: K3 on the batch's points at the fusion bench config;
-* ``fusion_mpts``, ``tsdf_mpts``: the 96-frame replays of phases 4 and 6
-  (push to drain; ``process()`` follows, untimed).
+* ``tsdf_surface/batch2``, ``tsdf_surface/replay``: T3 on the surface of
+  the config-5 grid after two batches and after every batch of the sweep
+  (the grid ``process()`` extracts at the end of the replay);
+* ``planar_frontend``: K5 on the session's planar wire of the first
+  batch (``chip_smoke.planar_wires``), for a checkout that has it;
+* ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``: the 96-frame replays of
+  phases 4, 6 and 7 (push to drain; ``process()`` follows, untimed; the
+  planar one for a checkout with ``push_frame``).
 
 Kernel times are device times (``chip_smoke.device_ms``): the median of 10
 calls, CUDA events around each call, with a sleep kernel ahead of the
@@ -48,7 +54,8 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 10
 TIMED = ("hash_insert/integrate", "hash_insert/refine", "hash_insert/tsdf",
-         "normal_fit", "segscan", "dep_stream")
+         "normal_fit", "segscan", "dep_stream", "tsdf_surface/batch2",
+         "tsdf_surface/replay", "planar_frontend")
 
 
 def smoke():
@@ -86,6 +93,7 @@ def child(root: str) -> dict:
     from hifi_fusion_tpu_torch.models import tsdf
     from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
     from hifi_fusion_tpu_torch.ops import hashing, integrate, refine, scatter
+    from hifi_fusion_tpu_torch.runtime import session
     from hifi_fusion_tpu_torch.utils.synthetic import (camera_rays,
                                                        make_depth_sweep)
     if not Path(kernels.__file__).resolve().is_relative_to(
@@ -160,16 +168,38 @@ def child(root: str) -> dict:
     del svals, starts, sid
     grid, (table, ids) = cs.tsdf_state(hashing, tp, batch, rays)
     res["hash_insert/tsdf"] = time_insert(table, ids, tcfg.base.max_probes)
-    del tp, grid, table, ids
+    del table, ids
+    final = tp.init()
+    for i in range(cs.FRAMES // 8):
+        tp.step_batch_depth(final, *batch(i), rays)
+    for shape, g in (("batch2", grid), ("replay", final)):
+        cell, slots = tsdf.surface_cells(g, tcfg)
+        res[f"tsdf_surface/{shape}"] = cs.device_ms(
+            torch, tsdf.tsdf_surface, lambda: (cell, slots, g, tcfg),
+            reps=REPS)
+    del tp, grid, final, cell, slots
     torch.cuda.empty_cache()
+    res["planar_frontend"] = None
+    if hasattr(integrate, "planar_frontend"):
+        p, c, m, t, q, _ = cs.planar_wires(torch, frames,
+                                            dev)["f32-f32-count"]
+        res["planar_frontend"] = cs.device_ms(
+            torch, lambda: integrate.planar_frontend(p, c, m, t, cfg, q),
+            tuple, reps=REPS)
+        del p, c, m, t
     # the replays
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
-        _, dt, _ = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/f")
+        dt = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/f")[1]
         res["fusion_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
-        _, dt, _ = cs.replay(torch, tcfg.base, frames, rays_np, "cuda",
-                             tmp + "/t", model="tsdf",
-                             model_params=cs.TSDF_PARAMS)
+        dt = cs.replay(torch, tcfg.base, frames, rays_np, "cuda",
+                       tmp + "/t", model="tsdf",
+                       model_params=cs.TSDF_PARAMS)[1]
         res["tsdf_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+        res["planar_mpts"] = None
+        if hasattr(session.FusionSession, "push_frame"):
+            dt = cs.replay(torch, cfg, frames, None, "cuda", tmp + "/p",
+                           clouds=cs.cloud_frames(frames))[1]
+            res["planar_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
     return res
 
 
@@ -198,9 +228,11 @@ def main(argv) -> int:
         r = json.loads(out.stdout.strip().splitlines()[-1])
         r["label"] = label
         runs.append(r)
-        times = ", ".join(f"{k} {r[k]:.4f}" for k in TIMED)
-        print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f} Mpts/s, "
-              f"tsdf {r['tsdf_mpts']:.3f} Mpts/s ({root})", flush=True)
+        times = ", ".join(f"{k} {r[k]}" if r[k] is None
+                          else f"{k} {r[k]:.4f}" for k in TIMED)
+        print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f}, tsdf "
+              f"{r['tsdf_mpts']:.3f}, planar {r['planar_mpts']} Mpts/s "
+              f"({root})", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

@@ -24,6 +24,25 @@ def test_depth_frontend_bytes(K, N):
     assert bounds.depth_frontend(K, N)["bytes"] == want
 
 
+@pytest.mark.parametrize("wire,K,N,want", [
+    # f32 points and rgb, a bool mask: 12 + 12 + 1 in, 28 out a lane, a
+    # pose a frame; 8 x 640x480 is the 130 MB of csrc/planar_frontend.cu
+    ("f32", 8, 307_200, 8 * 307_200 * 53 + 8 * 64),
+    # u16 points, packed u32 rgb, count prefixes: 6 + 4 in, 28 out a lane;
+    # a pose, a (2,3) f32 quantization and an i32 count a frame
+    ("q16", 8, 307_200, 8 * 307_200 * 38 + 8 * (64 + 24 + 4)),
+    ("q16", 1, 10, 10 * 38 + 92)])
+def test_planar_frontend_bytes(wire, K, N, want):
+    kw = {} if wire == "f32" else dict(point_bytes=6, rgb_bytes=4,
+                                       mask_bytes=0)
+    b = bounds.planar_frontend(K, N, **kw)
+    assert b["bytes"] == want and b["ops"] == 30 * K * N
+    assert b["bound_by"] == "bytes"
+    if (wire, K) == ("f32", 8):
+        assert b["bytes"] == 130_253_312
+        assert b["bound_ms"] == pytest.approx(0.03888, abs=1e-5)
+
+
 @pytest.mark.parametrize("K,N,S", [(8, 307_200, 11), (1, 10, 3)])
 def test_tsdf_lanes_bytes(K, N, S):
     want = K * N * 4 + N * 12 + K * 68 + K * N * S * (4 + 6 * 4)

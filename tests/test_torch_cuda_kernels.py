@@ -428,3 +428,109 @@ def test_tsdf_surface_matches_plain(tsdf_state):
     want = tsdf.tsdf_surface_plain(cell, slots, grid, TCFG)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-6
+
+
+def _planar_inputs(dev, K, n, pw, cw, mw, seed):
+    """K frames of n lanes for K5: world points on cell faces, inside
+    cells, exactly on the bbox faces and one ulp inside them, beyond the
+    bbox and beyond the z clip, seen from look-down and general poses, on
+    the wires ``pw`` (f32, q16), ``cw`` (f32, u32, 565) and ``mw`` (bool,
+    count)."""
+    from hifi_fusion_tpu_torch.utils.synthetic import Frame, pack_frame_q16
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    res = f32(CFG.resolution[0])
+    b = CFG.bbox
+    lo, hi = np.asarray(b[0::2], f32), np.asarray(b[1::2], f32)
+    c = rng.integers(-2, max(CFG.dims) + 2, (K, 3, n))
+    w = (np.asarray(CFG.origin, f32)[None, :, None] + c.astype(f32) * res
+         ).astype(f32)
+    w[:, :, ::3] += (rng.random(w[:, :, ::3].shape) * res).astype(f32)
+    edge = [lo, hi, np.nextafter(lo, f32(1)), np.nextafter(hi, f32(-1))]
+    for i in range(0, n, 11):
+        a = rng.integers(0, 3)
+        w[:, a, i] = edge[(i // 11) % 4][a]
+    pts, poses, quant = [], [], []
+    for k in range(K):
+        pose = np.eye(4)
+        if k % 3 == 2:              # a general rotation
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            pose[:3, :3] = q * np.sign(np.linalg.det(q))
+        else:
+            pose[1, 1] = pose[2, 2] = -1.0
+        pose[:3, 3] = [0.01 * k, -0.02, 0.5]
+        cam = (pose[:3, :3].T @ (w[k].astype(np.float64)
+                                 - pose[:3, 3:])).astype(f32)
+        cam[2, ::17] = 20.0          # beyond the z clip
+        if pw == "q16":
+            p = pack_frame_q16(Frame(np.ascontiguousarray(cam.T),
+                                     np.zeros((n, 3), f32), pose.astype(f32),
+                                     np.ones(n, bool)), n)
+            cam, q = p.points_q, p.quant
+            quant.append(q)
+        pts.append(cam)
+        poses.append(pose.astype(f32))
+    rgb8 = rng.integers(0, 256, (K, 3, n))
+    if cw == "f32":
+        rgb = rgb8.astype(f32)
+    elif cw == "u32":
+        r = rgb8.astype(np.uint32)
+        rgb = (r[:, 0] << 16) | (r[:, 1] << 8) | r[:, 2]
+    else:
+        rgb = rng.integers(0, 1 << 16, (K, n)).astype(np.uint16)
+    mask = (rng.random((K, n)) < 0.9 if mw == "bool"
+            else rng.integers(0, n + 1, K).astype(np.int32))
+    put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (np.stack(pts), rgb, mask, np.stack(poses))]
+    q = torch.from_numpy(np.stack(quant)).to(dev) if quant else None
+    return put, q
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("wires", ["f32-f32-bool", "f32-u32-count",
+                                   "f32-565-bool", "q16-f32-count",
+                                   "q16-u32-bool", "q16-565-count"])
+def test_planar_frontend_bit_exact(dev, K, wires):
+    pw, cw, mw = wires.split("-")
+    (pts, rgb, mask, poses), quant = _planar_inputs(dev, K, 4099, pw, cw,
+                                                    mw, seed=K + len(wires))
+    n0 = kernels.LAUNCHES["planar_frontend"]
+    got = integrate.planar_frontend(pts, rgb, mask, poses, CFG, quant)
+    assert kernels.LAUNCHES["planar_frontend"] == n0 + 1
+    q = None if quant is None else quant
+    want = integrate.planar_frontend_plain(pts, rgb, mask, poses, q, CFG)
+    assert all(_same_words(g, w) for g, w in zip(got, want))
+    n_valid = int((got[1] != integrate.INVALID_ID).sum())
+    assert 0 < n_valid < got[1].numel()
+
+
+def test_tsdf_surface_bit_exact_config5(dev):
+    """T3 against its plain version, bit for bit, on the surface of a
+    TSDF config-5 grid (0.8 mm pitch, 2^24 slots) after two K=8 batches of
+    the seeded 640x480 sweep."""
+    from hifi_fusion_tpu_torch.config import FusionConfig
+    base = FusionConfig(
+        max_batch_frames=8, bbox=(-0.35, 0.35, -0.35, 0.35, 0.0, 0.4),
+        resolution=(0.0008, 0.0008, 0.0008), capacity_log2=24,
+        max_points=640 * 480, max_unique_per_frame=1 << 19,
+        refine_every=0, z_clip=(0.28, 0.6)).validate()
+    tcfg = tsdf.TsdfConfig(base=base, n_samples=11, batch_unique=1 << 21)
+    rays_np = camera_rays(640, 480, fx=900.0, fy=900.0)
+    frames = make_depth_sweep(base, 16, width=640, height=480, seed=0,
+                              srays=rays_np, arc_frames=100)
+    pipe = tsdf.TsdfPipeline(tcfg, dev)
+    rays, grid = pipe.put(rays_np), pipe.init()
+    for i in range(2):
+        fs = frames[8 * i:8 * i + 8]
+        pipe.step_batch_depth(
+            grid, pipe.put(np.stack([f.depth_q for f in fs])),
+            pipe.put(np.stack([f.rgb565 for f in fs])),
+            pipe.put(np.full((8,), fs[0].count, np.int32)),
+            pipe.put(np.stack([f.pose for f in fs])), rays)
+    cell, slots = tsdf.surface_cells(grid, tcfg)
+    assert cell.numel() > 50_000
+    n0 = kernels.LAUNCHES["tsdf_surface"]
+    got = tsdf.tsdf_surface(cell, slots, grid, tcfg)
+    assert kernels.LAUNCHES["tsdf_surface"] == n0 + 1
+    want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
+    assert all(_same_words(g, w) for g, w in zip(got, want))

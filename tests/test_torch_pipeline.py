@@ -99,3 +99,38 @@ def test_batch_rule_and_cadence():
             assert every % k == 0 and (first == 0 or first % k == 0)
             for f in range(1, 40):
                 assert refine_due(f, k, cfg) == jax_due(f, k, cfg)
+
+
+def test_depth_frames_wider_than_max_points_are_counted(tmp_path):
+    """Depth frames wider than ``max_points`` are cut to it and counted in
+    ``frames_truncated`` / ``points_truncated``, by the JAX session's rule
+    (session.py:636-648), and both sessions fuse the same cells."""
+    rays = camera_rays(64, 80, fx=80.0, fy=80.0)
+    frames = make_depth_sweep(CFG, 4, width=64, height=80, srays=rays,
+                              seed=6, noise_sd=3e-4, camera_height=0.4)
+    n = CFG.max_points
+    assert rays.shape[1] > n
+    out = {}
+    for name, make, proc in (
+            ("port", lambda **kw: FusionSession(CFG, "cpu", **kw), {}),
+            ("jax", lambda **kw: JaxSession(JCFG, **kw),
+             {"extra_fields": FIELDS})):
+        with make(output_dir=str(tmp_path / name),
+                  batch_fill_wait=2.0) as s:
+            s.start()
+            for f in frames:
+                # the JAX session multiplies by the ray table as given, so
+                # both get the rays of the pixels kept
+                assert s.push_depth_frame(f.depth_q, f.rgb565, f.pose,
+                                          rays=rays[:, :n])
+            assert s.drain(600)
+            out[name] = (s.metrics(), s.process(**proc))
+    (pm, pr), (jm, jr) = out["port"], out["jax"]
+    for k in ("frames_integrated", "frames_truncated", "points_truncated",
+              "pose_failures"):
+        assert pm[k] == jm[k], k
+    assert pm["frames_truncated"] == 4
+    assert pm["points_truncated"] == 4 * (rays.shape[1] - n)
+    assert pm["pose_failures"] == 0
+    np.testing.assert_array_equal(pr["host"]["cell"], jr["host"]["cell"])
+    np.testing.assert_array_equal(pr["host"]["count"], jr["host"]["count"])

@@ -11,7 +11,9 @@ and prints no result line):
 1. the card's name and power limit (nvidia-smi); no CUDA, no run;
 2. a fresh build of the eight CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
-   register / spill report;
+   register / spill report, and of the two host libraries (``g++``: the
+   native host runtime, ``runtime/native``, and the C++ oracle,
+   ``oracle/native``) with their build seconds;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    its main path gives it, timed on the card (``device_ms``) in the order
    plain, kernel, kernel, plain: K1-K4 at the fusion bench config, K5 on
@@ -32,8 +34,11 @@ and prints no result line):
    yardstick the port never calls;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
-   seeded sweep, then ``process()``; checks overflow counters, voxel count,
-   unit normals, the PCD and CSV files, and that K1-K4 launched;
+   seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
+   four export variants; checks overflow counters, voxel count, unit
+   normals, the PCD and CSV files, each variant's rows against its
+   ``io/downloads`` view, and that K1-K4 launched; prints the session's
+   stage timers;
 5. reduced sweeps through the port on the card and through its plain path
    on the CPU: the fusion path compared by cell id with the benchmark's
    structural gates, the TSDF path by cell id (grid sums exact, extract
@@ -42,7 +47,7 @@ and prints no result line):
    the same sweep (0.8 mm pitch, S=11 samples, K=8 batches), then
    ``process()``; checks overflow counters, frames, unit normals, the PCD
    and CSV files, the surface count against phase 3's final grid, and
-   that T1, T2, T3 and K2 launched;
+   that T1, T2, T3 and K2 launched; prints the stage timers;
 7. the PointCloud2 ingest path: the sweep of phase 4 turned on the host
    into ``runtime/decode.CloudFrame`` records of its valid pixels (their
    f32 camera points, bit-identical to the card's unprojection, and their
@@ -50,8 +55,22 @@ and prints no result line):
    same K and cadence, then ``process()``; checks overflow, truncation
    and pose-failure counters, that the extract holds phase 4's cells with
    the same cylinder and point counts, and that K5, K2, K3 and K4
-   launched.  It prints the replay's rate and the session's host decode
-   seconds.
+   launched.  It prints the replay's rate, the session's native host
+   decode seconds (its ``decode`` stage) and, timed on the same records
+   outside the session, how a frame's decode divides between the
+   library's decode and the repack into the padded planar batch;
+8. the state round trip: a second bench-config session ``warm()``s
+   (kernels, host library, every step on a throwaway grid, the extract),
+   loads phase 4's checkpoint (``load_state``) and ``process()``es it into
+   a PLY, which must hold phase 4's cells with equal counts and
+   centroids;
+9. the full sweep against the C++ oracle: the 96 frames' camera points
+   (the records of phase 7) through ``oracle/native.NativeOracle`` at the
+   session's cadence (a refine after each K-batch holding a mark, buffer
+   reclamation as the config says), its extract held to phase 4's under
+   ``checks.parity_gates`` and a unit-normal agreement gate
+   (bench.py:709-775); prints the oracle's seconds and Mpts/s on this
+   host, single-threaded.
 
 The last lines are a JSON object of per-kernel results (K2's entry holds
 its integrate shape's numbers and, under ``shapes``, every shape's), the
@@ -103,6 +122,8 @@ KERNELS = {
 FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
 PLANAR_PATH = ("planar_frontend", "hash_insert", "dep_stream", "normal_fit")
 TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
+# the reference's download* views (OccupancyGrid.hpp:491-601)
+VARIANTS = ("hq", "classified", "xyzrgb", "normals")
 # tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
 TSDF_PARAMS = {"n_samples": 11, "batch_unique": 1 << 21}
 
@@ -528,17 +549,20 @@ def rgb8(rgb565) -> np.ndarray:
                      (v & 0x1F) * 8], axis=1).astype(np.float32)
 
 
+def camera_points(f) -> np.ndarray:
+    """(n,3) f32 camera points of a depth frame's valid pixels (depth > 0):
+    the card's unprojection, bit for bit."""
+    return np.ascontiguousarray(f.points_f32[:, f.depth_q > 0].T)
+
+
 def cloud_frames(frames) -> list:
     """``(CloudFrame, pose)`` for each depth frame: the PointCloud2 record
-    of its valid pixels (depth > 0), their f32 camera points (the card's
-    unprojection, bit for bit) and their 8-bit colour."""
+    of its valid pixels, their ``camera_points`` and their 8-bit
+    colour."""
     from hifi_fusion_tpu_torch.runtime.decode import make_cloud_frame
-    out = []
-    for f in frames:
-        keep = f.depth_q > 0
-        out.append((make_cloud_frame(f.points_f32[:, keep].T,
-                                     rgb8(f.rgb565[keep])), f.pose))
-    return out
+    return [(make_cloud_frame(camera_points(f),
+                              rgb8(f.rgb565[f.depth_q > 0])), f.pose)
+            for f in frames]
 
 
 def planar_wires(torch, frames, dev) -> dict:
@@ -635,26 +659,13 @@ def segscan_yardstick(torch, scatter, tsdf, sid, svals, starts) -> float:
         data, "sum", lengths=lengths, axis=0), tuple, reps=2 * REPS)
 
 
-def read_pcd(path):
-    with open(path, "rb") as f:
-        raw = f.read()
-    head_end = raw.find(b"DATA ")
-    nl = raw.find(b"\n", head_end)
-    meta = {}
-    for line in raw[:nl].decode().splitlines():
-        parts = line.split()
-        meta[parts[0]] = parts[1:]
-    n = int(meta["POINTS"][0])
-    cols = np.loadtxt(raw[nl + 1:].decode().splitlines(), dtype=np.float32,
-                      ndmin=2)
-    return n, cols
-
-
 def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
-           clouds=None, **session_kw):
+           clouds=None, state_path=None, variants=(), **session_kw):
     """A session replay of the depth ``frames`` (or, given ``clouds``,
-    ``push_frame`` of those ``(CloudFrame, pose)`` pairs), then
-    ``process()``: ``(result, replay s, process s, metrics)``."""
+    ``push_frame`` of those ``(CloudFrame, pose)`` pairs), a ``save_state``
+    to ``state_path`` when given, then ``process(variants=variants)``:
+    ``(result, replay s, process s, metrics)``, the metrics read before
+    ``process()`` with the stage timers read after it."""
     from hifi_fusion_tpu_torch.runtime.session import FusionSession
     with FusionSession(cfg, device, output_dir=out_dir,
                        batch_fill_wait=fill_wait, **session_kw) as s:
@@ -671,9 +682,14 @@ def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
             raise AssertionError("session did not drain")
         dt = time.monotonic() - t0
         m = s.metrics()
+        if state_path is not None:
+            t1 = time.monotonic()
+            s.save_state(state_path)
+            log(f"save_state: {time.monotonic() - t1:.3f} s")
         t1 = time.monotonic()
-        r = s.process()
+        r = s.process(variants=variants)
         t_proc = time.monotonic() - t1
+        m["stage_timers"] = s.timers.report()
     if m["frames_integrated"] != len(frames) or m["dispatch_errors"]:
         raise AssertionError(f"session integrated "
                              f"{m['frames_integrated']}/{len(frames)} "
@@ -693,9 +709,12 @@ def check_outputs(r) -> int:
     if n == 0 or np.abs(nrm - 1.0).max() > 1e-5:
         raise AssertionError(f"{n} voxels, normals off unit by "
                              f"{np.abs(nrm - 1.0).max(initial=0.0)}")
-    n_pcd, cols = read_pcd(r["cloud"])
-    if n_pcd != n or cols.shape != (n, 8) or not np.isfinite(cols).all():
-        raise AssertionError(f"PCD: {n_pcd} points, {cols.shape}")
+    from hifi_fusion_tpu_torch.io.pcd import read_pcd
+    cols, n_pcd = read_pcd(r["cloud"])
+    if n_pcd != n or len(cols) != 8 or any(
+            c.shape != (n,) or not np.isfinite(c).all()
+            for c in cols.values()):
+        raise AssertionError(f"PCD: {n_pcd} points, fields {list(cols)}")
     csv = np.genfromtxt(r["metadata"], delimiter=",", skip_header=1,
                         ndmin=2)
     if csv.shape != (n, 7) or not np.isfinite(csv).all():
@@ -745,6 +764,143 @@ def planar_replay(torch, cfg, frames, depth_host, device, card) -> None:
         f"Mpts/s of points ({card}); host decode {m['decode_s']:.3f} s; "
         f"process() {t_proc:.3f} s; {n} voxels, the depth replay's cells, "
         f"cylinder and point counts; {json.dumps(r['grid_metrics'])}")
+    log(f"phase 7: stage timers {json.dumps(m['stage_timers'])}")
+    lib_s, repack_s = decode_split(cfg, clouds)
+    log(f"phase 7: decode split outside the session: library "
+        f"{1e3 * lib_s / len(clouds):.3f} ms a frame, repack into the "
+        f"padded batch {1e3 * repack_s / len(clouds):.3f} ms a frame "
+        f"({lib_s:.3f} s + {repack_s:.3f} s)")
+
+
+def decode_split(cfg, clouds, k=8):
+    """Seconds of the session's decode of ``clouds`` in K-batches, split
+    into the native library's decode (``decode_frame``) and the rest of
+    ``FusionSession._decode_planar``: the padded batch's allocation and
+    the (n,3) -> (3,n) repack into it."""
+    from hifi_fusion_tpu_torch.runtime.decode import decode_frame
+    N = cfg.max_points
+    lib_s = repack_s = 0.0
+    for b in range(0, len(clouds), k):
+        t0 = time.monotonic()
+        pts = np.zeros((k, 3, N), np.float32)
+        rgb = np.zeros((k, 3, N), np.float32)
+        repack_s += time.monotonic() - t0
+        for i, (frame, _) in enumerate(clouds[b:b + k]):
+            t0 = time.monotonic()
+            xyz, col = decode_frame(frame)
+            t1 = time.monotonic()
+            n = xyz.shape[0]
+            pts[i, :, :n] = xyz.T
+            rgb[i, :, :n] = col.T
+            lib_s += t1 - t0
+            repack_s += time.monotonic() - t1
+    return lib_s, repack_s
+
+
+def check_variants(r, cfg) -> dict:
+    """Each export variant of ``process()`` parses as a PCD with the rows
+    of its ``io/downloads`` view; returns {variant: rows}."""
+    from hifi_fusion_tpu_torch.io import downloads
+    from hifi_fusion_tpu_torch.io.pcd import read_pcd
+    host = r["host"]
+    want = {"hq": (downloads.download_hq(host, cfg), 8),
+            "classified": (downloads.download_classified(host, cfg), 4),
+            "xyzrgb": (downloads.download_xyz(host), 4),
+            "normals": (downloads.download_with_normals(host), 8)}
+    rows = {}
+    for v, (view, k) in want.items():
+        cols, n = read_pcd(r["variants"][v])
+        xyz = np.stack([cols["x"], cols["y"], cols["z"]], axis=1)
+        if n != view["xyz"].shape[0] or len(cols) != k or not np.allclose(
+                xyz, view["xyz"], rtol=0.0, atol=1e-6):
+            raise AssertionError(f"variant {v}: {n} rows, {len(cols)} "
+                                 f"fields, view {view['xyz'].shape}")
+        rows[v] = n
+    return rows
+
+
+def state_round_trip(torch, cfg, rays_np, state_path, depth_host, device,
+                     card) -> None:
+    """Phase 8: a fresh session warms, loads ``state_path`` and exports a
+    PLY that must hold ``depth_host``'s cells, counts and centroids."""
+    from hifi_fusion_tpu_torch import kernels
+    from hifi_fusion_tpu_torch.io.ply import read_ply
+    from hifi_fusion_tpu_torch.runtime.session import FusionSession
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+            FusionSession(cfg, device, output_dir=tmp,
+                          batch_fill_wait=10.0) as s:
+        t_warm = s.warm(rays_np, extract=True, depth=True)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        s.load_state(state_path)
+        t_load = time.monotonic() - t0
+        t0 = time.monotonic()
+        r = s.process("cloud.ply")
+        t_proc = time.monotonic() - t0
+        ply = read_ply(r["cloud"])
+        timers = s.timers.report()
+    host = r["host"]
+    n = depth_host["cell"].size
+    same = (np.array_equal(host["cell"], depth_host["cell"])
+            and np.array_equal(host["count"], depth_host["count"]))
+    err = (float(np.abs(ply["xyz"] - depth_host["centroid"]).max())
+           if ply["xyz"].shape == depth_host["centroid"].shape
+           else float("inf"))
+    if not same or r["n_points"] != n or err > 1e-6:
+        raise AssertionError(f"state round trip: {r['n_points']} voxels "
+                             f"against {n}, same cells and counts {same}, "
+                             f"PLY centroid error {err}")
+    log(f"phase 8: warm() {t_warm:.3f} s, load_state {t_load:.3f} s, "
+        f"process('cloud.ply') {t_proc:.3f} s ({card}); {n} voxels, phase "
+        f"4's cells and counts, PLY centroids within {err:.3g} m; launches "
+        f"after warm {dict(kernels.LAUNCHES)}; stage timers "
+        f"{json.dumps(timers)}")
+
+
+def oracle_sweep(cfg, frames, depth_host, card) -> None:
+    """Phase 9: the sweep's camera points through the C++ oracle at the
+    session's cadence, its extract held to ``depth_host`` under the
+    benchmark's structural gates and a unit-normal agreement gate."""
+    from hifi_fusion_tpu_torch import checks
+    from hifi_fusion_tpu_torch.models.pipeline import refine_due
+    from hifi_fusion_tpu_torch.oracle.native import NativeOracle
+    from hifi_fusion_tpu_torch.runtime.session import batch_frames
+    pts = [camera_points(f) for f in frames]
+    k = batch_frames(cfg)
+    cc = NativeOracle(cfg)
+    t0 = time.monotonic()
+    for i, f in enumerate(frames):
+        cc.integrate_frame(pts[i], None, f.pose)
+        done = i + 1
+        if done % k == 0 and refine_due(done, k, cfg):
+            cc.refine()
+    if not refine_due(len(frames), 1, cfg):
+        cc.refine()
+    dt = time.monotonic() - t0
+    orc = cc.extract(cap=1 << 22)
+    problems = checks.parity_gates(depth_host, orc, len(frames))
+    common, ia, ib = np.intersect1d(depth_host["cell"], orc["cell"],
+                                    return_indices=True)
+    dots = np.sum(depth_host["normal"][ia].astype(np.float64)
+                  * orc["normal"][ib], axis=1)
+    nfrac = float(np.mean(dots <= 0.999)) if common.size else 1.0
+    if nfrac > 1e-3:
+        problems.append(f"normal mismatch on {nfrac:.2%} of voxels")
+    ca = depth_host["count"][ia].astype(np.int64)
+    cb = orc["count"][ib]
+    px = len(frames) * frames[0].depth_q.size
+    n_pts = sum(p.shape[0] for p in pts)
+    log(f"phase 9: C++ oracle (single-threaded, refine every {k}-frame "
+        f"batch holding a mark, reclaim {cfg.reclaim_buffer}): "
+        f"{len(frames)} frames in {dt:.3f} s = {px / dt / 1e6:.3f} Mpts/s "
+        f"of pixels, {n_pts / dt / 1e6:.3f} Mpts/s of points on this "
+        f"host ({card}); oracle {orc['cell'].size} voxels, card "
+        f"{depth_host['cell'].size}, common {common.size}, count "
+        f"mismatches {int((ca != cb).sum())}, total hits {int(ca.sum())} "
+        f"vs {int(cb.sum())}, normal mismatch share {nfrac:.6f}, "
+        f"problems {problems}")
+    if problems:
+        raise AssertionError(f"card vs C++ oracle: {problems}")
 
 
 def tsdf_card_vs_cpu(torch, scfg, srays, sframes) -> list:
@@ -792,6 +948,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from hifi_fusion_tpu_torch import checks, kernels
     from hifi_fusion_tpu_torch.config import FusionConfig, small_test_config
+    from hifi_fusion_tpu_torch.oracle import native as oracle_native
+    from hifi_fusion_tpu_torch.runtime import native
     from hifi_fusion_tpu_torch.models.tsdf import TsdfConfig
     from hifi_fusion_tpu_torch.utils.synthetic import (camera_rays,
                                                        make_depth_sweep)
@@ -812,6 +970,10 @@ def main() -> int:
             log(f"phase 2: {line.strip()}")
     log(f"phase 2: built {kernels.LIB_PATH.name} in "
         f"{kernels.BUILD_INFO['seconds']:.1f} s")
+    native.library()
+    oracle_native.library()
+    for stem, sec in native.BUILD_SECONDS.items():
+        log(f"phase 2: g++ built {stem} in {sec:.2f} s")
 
     # -- phase 3 -------------------------------------------------------
     cfg = bench_config(FusionConfig)
@@ -839,19 +1001,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 4 -------------------------------------------------------
+    state_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_state_")
+    state_path = str(Path(state_dir.name) / "fusion_state.npz")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels.reset_launches()
-        r, dt, t_proc, _ = replay(torch, cfg, frames, rays_np, "cuda", tmp)
+        r, dt, t_proc, m = replay(torch, cfg, frames, rays_np, "cuda", tmp,
+                                  state_path=state_path, variants=VARIANTS)
         fusion_launches = path_launches(FUSION_PATH)
         n = check_outputs(r)
         if n <= 20000:
             raise AssertionError(f"only {n} voxels extracted")
+        rows = check_variants(r, cfg)
     depth_host = r["host"]
     mpts = FRAMES * WIDTH * HEIGHT / dt / 1e6
     log(f"phase 4: {FRAMES} frames in {dt:.3f} s = {mpts:.3f} Mpts/s "
         f"({card}); process() {t_proc:.3f} s; {n} voxels, "
-        f"{int(r['host']['count'].sum())} cylinder hits; launches "
-        f"{fusion_launches}; {json.dumps(r['grid_metrics'])}")
+        f"{int(r['host']['count'].sum())} cylinder hits; variant rows "
+        f"{rows}; launches {fusion_launches}; "
+        f"{json.dumps(r['grid_metrics'])}")
+    log(f"phase 4: stage timers {json.dumps(m['stage_timers'])}")
 
     # -- phase 5 -------------------------------------------------------
     srays = camera_rays(128, 96, fx=160.0, fy=160.0)
@@ -885,7 +1053,7 @@ def main() -> int:
     # -- phase 6 -------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels.reset_launches()
-        r, dt, t_proc, _ = replay(torch, tcfg.base, frames, rays_np,
+        r, dt, t_proc, m = replay(torch, tcfg.base, frames, rays_np,
                                   "cuda", tmp, model="tsdf",
                                   model_params=TSDF_PARAMS)
         tsdf_launches = path_launches(TSDF_PATH)
@@ -901,12 +1069,21 @@ def main() -> int:
     log(f"phase 6: TSDF config 5, {FRAMES} frames in {dt:.3f} s = "
         f"{mpts:.3f} Mpts/s ({card}); process() {t_proc:.3f} s; {n} "
         f"surface voxels; launches {tsdf_launches}; {json.dumps(gm)}")
+    log(f"phase 6: stage timers {json.dumps(m['stage_timers'])}")
 
     # -- phase 7 -------------------------------------------------------
     kernels.reset_launches()
     planar_replay(torch, cfg, frames, depth_host, "cuda", card)
     planar_launches = path_launches(PLANAR_PATH)
     log(f"phase 7: launches {planar_launches}")
+
+    # -- phase 8 -------------------------------------------------------
+    state_round_trip(torch, cfg, rays_np, state_path, depth_host, "cuda",
+                     card)
+    state_dir.cleanup()
+
+    # -- phase 9 -------------------------------------------------------
+    oracle_sweep(cfg, frames, depth_host, card)
 
     # launches: the sum over the three main-path runs (phases 4, 6 and 7);
     # K2's entry holds its integrate shape's numbers and every shape's

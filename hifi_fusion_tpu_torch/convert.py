@@ -3,10 +3,12 @@
 ``grid_from_jax`` takes the JAX ``GridState`` fields as numpy arrays (for
 example ``{f: np.asarray(getattr(g, f)) for f in g._fields}``) and strips
 the scatter scratch tails; ``grid_to_numpy`` gives the port's state back in
-the JAX package's dtypes without tails.  ``tsdf_grid_from_jax`` and
-``tsdf_grid_to_numpy`` do the same for the TSDF family's grid, the second
-restoring the tails.  With them a test starts both packages from one
-state.
+the JAX package's dtypes without tails, and ``grid_to_jax`` with the tails
+restored (at their initial values), the JAX package's own shapes.
+``tsdf_grid_from_jax`` and ``tsdf_grid_to_numpy`` do the same for the TSDF
+family's grid, the second restoring the tails.  With them a test starts
+both packages from one state, and a checkpoint (``save_state`` /
+``load_state``) written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -56,6 +58,29 @@ def grid_to_numpy(grid: GridState) -> Dict[str, np.ndarray]:
     for f in (fld.name for fld in dataclasses.fields(grid)):
         a = getattr(grid, f).detach().cpu().numpy()
         out[f] = a.view(np.uint32) if f == "occ_bits" else a
+    return out
+
+
+# the JAX package's initial value of each per-voxel field (grid.make_grid),
+# which its scratch tails hold
+_TAIL_FILL = {"key": -1, "occ_bits": 0, "normal_found": False,
+              "normal": 0.0, "cyl_stats": 0.0, "viewpoint": 0.0,
+              "rgb_sum": 0.0, "n_pts": 0.0, "dep": -1, "dep_count": 0}
+
+
+def grid_to_jax(grid: GridState, config: FusionConfig
+                ) -> Dict[str, np.ndarray]:
+    """Port ``GridState`` -> numpy fields in the JAX package's shapes and
+    dtypes: ``grid_to_numpy`` with each field's scratch tail appended
+    (``scatter_tail`` rows of a per-voxel field's width; ``occ_bits`` as
+    many words)."""
+    out = grid_to_numpy(grid)
+    T = config.scatter_tail
+    C = config.capacity
+    for name, fill in _TAIL_FILL.items():
+        a = out[name]
+        k = 1 if name == "occ_bits" else a.shape[0] // C
+        out[name] = np.concatenate([a, np.full(k * T, fill, a.dtype)])
     return out
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import convert
 from ..config import FusionConfig
 from ..grid import GridState, grid_metrics, make_grid
 from ..ops.extract import ExtractResult, extract, to_host
@@ -60,6 +61,16 @@ class FusionPipeline:
     def put(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the pipeline's device."""
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def put_state(self, fields: dict) -> GridState:
+        """Host checkpoint arrays in the JAX package's layout (scratch tails
+        allowed) -> a grid on the pipeline's device."""
+        return convert.grid_from_jax(fields, self.config, self.device)
+
+    def host_state(self, grid: GridState) -> dict:
+        """The grid as host arrays in the JAX package's shapes and dtypes,
+        the layout ``put_state`` of either package takes."""
+        return convert.grid_to_jax(grid, self.config)
 
     def _refine_if_due(self, grid: GridState) -> GridState:
         if self.config.refine_every > 0 \

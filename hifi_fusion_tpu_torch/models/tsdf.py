@@ -415,6 +415,18 @@ class TsdfPipeline:
         """Host array -> tensor on the pipeline's device."""
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    def put_state(self, fields: dict) -> TsdfGrid:
+        """Host checkpoint arrays in the JAX package's layout -> a grid on
+        the pipeline's device."""
+        from ..convert import tsdf_grid_from_jax
+        return tsdf_grid_from_jax(fields, self.config, self.device)
+
+    def host_state(self, grid: TsdfGrid) -> dict:
+        """The grid as host arrays in the JAX package's shapes and dtypes,
+        the layout ``put_state`` of either package takes."""
+        from ..convert import tsdf_grid_to_numpy
+        return tsdf_grid_to_numpy(grid, self.config)
+
     def step_depth(self, grid, depth, rgb565, count, pose, rays) -> TsdfGrid:
         return integrate_tsdf_depth(grid, depth, rgb565, count, pose, rays,
                                     self.config)

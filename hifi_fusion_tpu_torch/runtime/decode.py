@@ -1,12 +1,13 @@
 """Sensor frame decoding: PointCloud2-style binary records -> arrays.
 
-A copy of ``hifi_fusion_tpu/runtime/decode.py`` (numpy only; the port
-cannot import the JAX package).  A RealSense-style stream delivers
-interleaved per-point records (x, y, z f32 and a packed rgb float) with a
-stride; decoding is a strided NumPy copy, and organized clouds
-(height > 1) decode every row.  The JAX package's optional C++ decode has
-no counterpart here yet: ``decode_frame`` always takes the NumPy path,
-which gives the same arrays.
+A copy of ``hifi_fusion_tpu/runtime/decode.py`` (the port cannot import
+the JAX package).  A RealSense-style stream delivers interleaved per-point
+records (x, y, z f32 and a packed rgb float) with a stride; organized
+clouds (height > 1) decode every row.  ``decode_frame`` runs the native
+host runtime's C++/OpenMP decode (``runtime/native``, built with ``g++`` at
+first use; a failed build raises), as the JAX package's does when its
+library is built.  ``_decode_numpy``, a strided NumPy copy, is the format
+oracle the tests hold the library to; the session never takes it.
 
 The reference's blue-channel bug (packed blue extracted with a shift of 1
 instead of 0, FUSION.cpp:174) is fixed by default and reproduced behind
@@ -20,6 +21,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from . import native
 
 # sensor_msgs/PointField datatype codes
 FLOAT32 = 7
@@ -80,10 +83,12 @@ def decode_frame(frame: CloudFrame, blue_shift_bug: bool = False
     off_x = frame.field_offset("x")
     off_y = frame.field_offset("y")
     off_z = frame.field_offset("z")
+    off_rgb = frame.field_offset("rgb")
     if off_x is None or off_y is None or off_z is None:
         raise ValueError("cloud frame lacks x/y/z fields")
-    return _decode_numpy(frame, off_x, off_y, off_z,
-                         frame.field_offset("rgb"), blue_shift_bug)
+    return native.decode_xyzrgb(
+        frame.data, frame.n_points, frame.point_step, off_x, off_y, off_z,
+        -1 if off_rgb is None else off_rgb, blue_shift_bug)
 
 
 def _decode_numpy(frame: CloudFrame, off_x: int, off_y: int, off_z: int,

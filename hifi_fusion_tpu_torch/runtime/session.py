@@ -5,7 +5,12 @@ contract:
 
 * ``start()`` / ``stop()`` gate frame ingestion (queued frames still drain);
 * ``reset(full=False)`` stops and drops the input queue, keeping the grid
-  (``full=True`` also clears the grid);
+  (``full=True`` also clears the grid and the failed dispatches counted
+  against it);
+* ``warm(rays=None, extract=False, depth=False, planar=True)`` builds the
+  CUDA kernels and the host library and runs zero inputs through every
+  step the session will dispatch on a throwaway grid, so the first frame
+  meets no build and no first-call set-up; it returns its wall seconds;
 * ``push_frame(frame, pose=None)`` queues one PointCloud2-style
   ``runtime/decode.CloudFrame`` (the subscriber callback).  Without a pose
   it asks ``pose_provider(frame)``; a lookup that raises drops the frame
@@ -13,13 +18,27 @@ contract:
   (``decode.decode_frame``), cuts it to ``max_points`` (counted in
   ``frames_truncated`` / ``points_truncated``) and integrates it through
   the planar frontend, kernel K5;
+* ``run_source(source)`` pushes every ``(frame, pose)`` of a
+  ``runtime/sources.Source`` and drains;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
   (u16 z-depth, rgb565, camera pose; the (3,N) ray table on first use);
   a frame wider than ``max_points`` is cut and counted the same way;
 * ``drain()`` waits until the queue is empty and the device is idle;
-* ``process()`` drains, runs the final refine, extracts, writes
-  ``test_cloud.pcd`` and ``meta.csv`` to ``output_dir``, then clears the
-  grid.
+* ``process(cloud_name, meta_name, ascii_mode, drain_timeout, variants,
+  extra_fields)`` drains, runs the final refine, extracts, writes the
+  cloud (PCD, or PLY when ``cloud_name`` ends in ``.ply``) and the
+  metadata CSV to ``output_dir`` (the CSV formatted on a thread while the
+  cloud is written; both native writers run with the GIL released),
+  writes the ``variants`` (``hq``, ``classified``, ``xyzrgb``,
+  ``normals``: the reference's ``download*`` views) next to the cloud,
+  then clears the grid.  Its ``host`` entry holds the extract's lanes
+  (those named in ``extra_fields``, or all);
+* ``save_state(path)`` / ``load_state(path)`` checkpoint the grid as an
+  npz in the JAX package's layout, which either package's ``load_state``
+  takes;
+* ``metrics()`` adds the session's counters and ``stage_timers``
+  (``utils/profiling.StageTimers``, the JAX package's stage names) to the
+  grid's.
 
 ``model`` picks the device-side model family: ``"fusion"`` (the
 cylinder-filtered pipeline, ``FusionPipeline``) or ``"tsdf"`` (the
@@ -37,7 +56,9 @@ the largest value <= ``max_batch_frames`` that divides both
 ``refine_every`` and ``refine_first``, so a batch never spans a refine
 mark and batched and single-stepped sessions refine at the same frames.
 A batch holds frames of one kind (clouds, or depth frames of one width).
-With 0 (live sources) every frame is stepped alone.
+With 0 (live sources) every frame is stepped alone.  Before a dispatch
+the worker waits for the previous one's device work (``device_wait``), so
+the host runs at most one step ahead of the card.
 """
 
 from __future__ import annotations
@@ -47,16 +68,20 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import FusionConfig
-from ..io import pcd
+from ..io import downloads, pcd, ply
 from ..models.pipeline import FusionPipeline, refine_due
 from ..models.tsdf import TsdfConfig, TsdfPipeline
+from ..utils.profiling import StageTimers, annotate
+from . import native
 from .decode import CloudFrame, decode_frame
+from .sources import Source
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
 
@@ -101,7 +126,8 @@ class FusionSession:
         self._shutdown = False
         self._started = False
         self._busy = False
-        self._errors = []
+        self._errors = []          # failed dispatches into the current grid
+        self._last_step = None     # CUDA event after the last dispatch
 
         self._grid = self.pipeline.init()
         self._rays = None
@@ -111,7 +137,7 @@ class FusionSession:
         self._pose_failures = 0
         self._frames_truncated = 0   # frames cut to max_points
         self._points_truncated = 0   # points cut from them
-        self._decode_s = 0.0         # host decode of cloud frames
+        self.timers = StageTimers()
         self._t_first = None
         self._t_last = None
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -133,13 +159,68 @@ class FusionSession:
             self.drain()
             with self._glock:
                 self._grid = self.pipeline.init()
+                self._errors.clear()
+
+    def warm(self, rays: Optional[np.ndarray] = None,
+             extract: bool = False, depth: bool = False,
+             planar: bool = True) -> float:
+        """Build the CUDA kernels (on a CUDA device) and the host library,
+        then run zero inputs through every step the session will dispatch,
+        single and K-batched, planar (``planar``) and depth (``rays``, or
+        ``depth`` with a zero ray table), and a refine, on a throwaway
+        grid; ``extract=True`` also runs the extract and the grid metrics.
+        ``rays`` is pinned as the session's ray table, as
+        ``push_depth_frame`` would.  The session grid is untouched, and the
+        launches are counted in ``kernels.LAUNCHES`` as any other.
+        Returns the wall seconds spent (JAX session.py:210-279)."""
+        t0 = time.monotonic()
+        pipe = self.pipeline
+        dev = pipe.device
+        if dev.type == "cuda":
+            kernels.library()
+        native.library()
+        N = self.config.max_points
+        K = self._kb
+        poses = pipe.put(np.broadcast_to(np.eye(4, dtype=np.float32),
+                                         (K, 4, 4)))
+        pose = poses[0]
+        g = pipe.init()
+        if rays is not None and self._rays is None:
+            self._rays = pipe.put(np.asarray(rays, np.float32))
+        zc = torch.zeros((K,), dtype=torch.int32, device=dev)
+        if planar and hasattr(pipe, "step"):
+            zp = torch.zeros((K, 3, N), dtype=torch.float32, device=dev)
+            g = pipe.step(g, zp[0], zp[0], zc[0], pose)
+            if K > 1:
+                g = pipe.step_batch(g, zp, zp, zc, poses)
+        zrays = self._rays
+        if zrays is None and depth:
+            zrays = torch.zeros((3, N), dtype=torch.float32, device=dev)
+        if zrays is not None:
+            zd = torch.zeros((K, N), dtype=torch.uint16, device=dev)
+            g = pipe.step_depth(g, zd[0], zd[0], zc[0], pose, zrays)
+            if K > 1:
+                g = pipe.step_batch_depth(g, zd, zd, zc, poses, zrays)
+        if self.config.refine_every > 0:
+            g = pipe.refine(g)
+        if extract:
+            pipe.extract_host(g)
+            pipe.grid_metrics(g)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.monotonic() - t0
+        log.info("WARM: kernels built and steps run in %.1fs", dt)
+        return dt
 
     def process(self, cloud_name: str = "test_cloud.pcd",
                 meta_name: str = "meta.csv", ascii_mode: bool = True,
-                drain_timeout: float = 300.0) -> Dict:
-        """Drain, export the fused cloud and its metadata, clear the grid.
-        Raises if the queue does not drain or a frame failed to integrate:
-        exporting such a grid would break the snapshot contract."""
+                drain_timeout: float = 300.0,
+                variants: Tuple[str, ...] = (),
+                extra_fields: Tuple[str, ...] = ()) -> Dict:
+        """Drain, export the fused cloud, its metadata and ``variants``,
+        clear the grid (JAX session.py:302-445).  Raises if the queue does
+        not drain or a frame failed to integrate: exporting such a grid
+        would break the snapshot contract."""
         was_started = self._started
         self._started = False
         try:
@@ -153,25 +234,90 @@ class FusionSession:
             os.makedirs(self.output_dir, exist_ok=True)
             cloud_path = os.path.join(self.output_dir, cloud_name)
             meta_path = os.path.join(self.output_dir, meta_name)
+            stage = self.timers.stage
             with self._glock:
                 grid = self._grid
                 if self.final_refine and self._needs_final_refine():
-                    grid = self.pipeline.refine(grid)
-                host = self.pipeline.extract_host(grid)
-                metrics = self.pipeline.grid_metrics(grid)
-                pcd.write_pcd_xyzrgbnormal(cloud_path, host["centroid"],
-                                           host["rgb"], host["normal"],
-                                           ascii_mode=ascii_mode)
-                pcd.write_metadata_csv(meta_path, host["sd"],
-                                       host["mean_dist"], host["sd_dist"],
-                                       host["count"])
-                self._grid = self.pipeline.init()
+                    with stage("process_refine"):
+                        grid = self.pipeline.refine(grid)
+                with stage("process_extract"):
+                    host = self.pipeline.extract_host(grid)
+                csv_err = []
+
+                def write_csv():
+                    try:
+                        pcd.write_metadata_csv(
+                            meta_path, host["sd"], host["mean_dist"],
+                            host["sd_dist"], host["count"])
+                    except Exception as e:      # re-raised after join
+                        csv_err.append(e)
+
+                csv_thread = threading.Thread(target=write_csv,
+                                              name="csv-export")
+                csv_thread.start()
+                try:
+                    with stage("process_export"):
+                        if cloud_path.endswith(".ply"):
+                            ply.write_ply(cloud_path, host["centroid"],
+                                          host["rgb"], host["normal"],
+                                          ascii_mode=ascii_mode)
+                        else:
+                            pcd.write_pcd_xyzrgbnormal(
+                                cloud_path, host["centroid"], host["rgb"],
+                                host["normal"], ascii_mode=ascii_mode)
+                        variant_paths = self._write_variants(
+                            host, cloud_path, variants, ascii_mode)
+                finally:
+                    with stage("process_csv_wait"):
+                        csv_thread.join()
+                if csv_err:
+                    raise csv_err[0]
+                with stage("process_metrics"):
+                    metrics = self.pipeline.grid_metrics(grid)
+                with stage("process_clear"):
+                    self._grid = self.pipeline.init()
+                    self._errors.clear()
         finally:
             self._started = was_started
         n = int(host["cell"].shape[0])
         log.info("PROCESS: %d voxels -> %s", n, cloud_path)
+        if extra_fields:
+            host = {f: host[f] for f in extra_fields}
         return {"cloud": cloud_path, "metadata": meta_path, "n_points": n,
-                "grid_metrics": metrics, "host": host}
+                "variants": variant_paths, "grid_metrics": metrics,
+                "host": host}
+
+    def _write_variants(self, host, cloud_path: str, variants,
+                        ascii_mode: bool) -> Dict[str, str]:
+        """Write the reference's extra download* views next to the main
+        cloud (OccupancyGrid.hpp:491-601; JAX session.py:447-481)."""
+        stem = cloud_path.rsplit(".", 1)[0]
+        out: Dict[str, str] = {}
+        for v in variants:
+            path = f"{stem}_{v}.pcd"
+            if v == "hq":
+                d = downloads.download_hq(host, self.config)
+                pcd.write_pcd_xyzrgbnormal(path, d["xyz"], d["rgb"],
+                                           d["normal"],
+                                           ascii_mode=ascii_mode)
+            elif v == "classified":
+                d = downloads.download_classified(host, self.config)
+                pcd.write_pcd_xyzrgb(path, d["xyz"], d["rgb"],
+                                     ascii_mode=ascii_mode)
+            elif v == "xyzrgb":
+                d = downloads.download_xyz(host)
+                pcd.write_pcd_xyzrgb(path, d["xyz"], d["rgb"],
+                                     ascii_mode=ascii_mode)
+            elif v == "normals":
+                d = downloads.download_with_normals(host)
+                pcd.write_pcd_xyzrgbnormal(path, d["xyz"], d["rgb"],
+                                           d["normal"],
+                                           ascii_mode=ascii_mode)
+            else:
+                raise ValueError(f"unknown export variant {v!r} (expected "
+                                 f"hq/classified/xyzrgb/normals)")
+            out[v] = path
+        return out
 
     # -- ingestion --------------------------------------------------------
     def push_frame(self, frame: CloudFrame,
@@ -217,6 +363,14 @@ class FusionSession:
                        np.asarray(rgb565, np.uint16),
                        np.asarray(pose, np.float32)))
         return True
+
+    def run_source(self, source: Source, auto_start: bool = True) -> None:
+        """Feed an entire source through the session (replay mode)."""
+        if auto_start:
+            self.start()
+        for frame, pose in source:
+            self.push_frame(frame, pose)
+        self.drain()
 
     def _enqueue(self, item) -> None:
         with self._qlock:
@@ -281,8 +435,8 @@ class FusionSession:
     def _decode_planar(self, items):
         """Host decode of K cloud frames into the planar wire: (K,3,N) f32
         points and rgb padded to N = ``max_points`` and (K,) i32 count
-        prefixes."""
-        t0 = time.monotonic()
+        prefixes (the ``decode`` stage: the library's decode and the
+        repack into the padded batch)."""
         N = self.config.max_points
         k = len(items)
         pts = np.zeros((k, 3, N), np.float32)
@@ -295,41 +449,60 @@ class FusionSession:
             pts[i, :, :n] = xyz[:n].T
             rgb[i, :, :n] = col[:n].T
             counts[i] = n
-        self._decode_s += time.monotonic() - t0
         return pts, rgb, counts
+
+    def _await_device(self) -> None:
+        """Wait until the card has finished the previous dispatch, so the
+        host runs at most one step ahead (on the CPU every op has finished
+        when it returns, and there is nothing to wait for)."""
+        with self.timers.stage("device_wait"):
+            if self._last_step is not None:
+                self._last_step.synchronize()
 
     def _dispatch(self, items) -> None:
         cfg = self.config
         k = len(items)
         put = self.pipeline.put
-        poses = put(np.stack([f[-1] for f in items]))
-        if items[0][0] == "cloud":
-            pts, rgb, counts = map(put, self._decode_planar(items))
-            with self._glock:
-                if k == 1:
-                    self._grid = self.pipeline.step(
-                        self._grid, pts[0], rgb[0], counts[0], poses[0])
-                else:
-                    self._grid = self.pipeline.step_batch(
-                        self._grid, pts, rgb, counts, poses)
+        cloud = items[0][0] == "cloud"
+        if cloud:
+            with self.timers.stage("decode"), annotate("decode"):
+                host = self._decode_planar(items)
         else:
             n = self._truncate(items[0][1].shape[-1], k, "depth frame")
-            depth = put(np.stack([f[1][:n] for f in items]))
-            rgb = put(np.stack([f[2][:n] for f in items]))
-            counts = put(np.full((k,), n, np.int32))
-            rays = self._rays[:, :n].contiguous()
-            with self._glock:
-                if k == 1:
-                    self._grid = self.pipeline.step_depth(
-                        self._grid, depth[0], rgb[0], counts[0], poses[0],
-                        rays)
-                else:
-                    self._grid = self.pipeline.step_batch_depth(
-                        self._grid, depth, rgb, counts, poses, rays)
+        self._await_device()
+        with self.timers.stage("device_step"), annotate("step"):
+            poses = put(np.stack([f[-1] for f in items]))
+            if cloud:
+                pts, rgb, counts = map(put, host)
+                with self._glock:
+                    if k == 1:
+                        self._grid = self.pipeline.step(
+                            self._grid, pts[0], rgb[0], counts[0],
+                            poses[0])
+                    else:
+                        self._grid = self.pipeline.step_batch(
+                            self._grid, pts, rgb, counts, poses)
+            else:
+                depth = put(np.stack([f[1][:n] for f in items]))
+                rgb = put(np.stack([f[2][:n] for f in items]))
+                counts = put(np.full((k,), n, np.int32))
+                rays = self._rays[:, :n].contiguous()
+                with self._glock:
+                    if k == 1:
+                        self._grid = self.pipeline.step_depth(
+                            self._grid, depth[0], rgb[0], counts[0],
+                            poses[0], rays)
+                    else:
+                        self._grid = self.pipeline.step_batch_depth(
+                            self._grid, depth, rgb, counts, poses, rays)
         if k > 1 and cfg.refine_every > 0 and refine_due(
                 self._frames_integrated + k, k, cfg):
-            with self._glock:
-                self._grid = self.pipeline.refine(self._grid)
+            with self.timers.stage("refine"), annotate("refine"):
+                with self._glock:
+                    self._grid = self.pipeline.refine(self._grid)
+        if self.pipeline.device.type == "cuda":
+            self._last_step = torch.cuda.Event()
+            self._last_step.record()
         now = time.monotonic()
         if self._t_first is None:
             self._t_first = now
@@ -374,6 +547,7 @@ class FusionSession:
         dt = (self._t_last - self._t_first
               if self._t_first is not None and self._t_last is not None
               else 0.0)
+        timers = self.timers.report()
         m.update({
             "frames_received": self._frames_in,
             "frames_integrated": self._frames_integrated,
@@ -382,11 +556,29 @@ class FusionSession:
             "pose_failures": self._pose_failures,
             "frames_truncated": self._frames_truncated,
             "points_truncated": self._points_truncated,
-            "decode_s": self._decode_s,
+            "decode_s": timers.get("decode", {}).get("total_s", 0.0),
             "frames_per_s": ((self._frames_integrated - 1) / dt
                              if dt > 0 else None),
+            "stage_timers": timers,
         })
         return m
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the grid as an npz of its fields in the JAX package's
+        layout (JAX session.py:789-796), after draining."""
+        self.drain()
+        with self._glock:
+            arrays = self.pipeline.host_state(self._grid)
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str) -> None:
+        """Replace the grid by a checkpoint written by either package's
+        ``save_state`` (JAX session.py:798-804)."""
+        with np.load(path) as z:
+            fields = {f: z[f] for f in z.files}
+        with self._glock:
+            self._grid = self.pipeline.put_state(fields)
+            self._errors.clear()
 
     def close(self) -> None:
         self._shutdown = True

@@ -105,7 +105,12 @@ def test_writers_byte_identical(tmp_path, ascii_mode):
 
 def test_port_imports_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, tempfile, os\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'hifi_fusion_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import hifi_fusion_tpu_torch as p\n"
         "n = 0\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -115,14 +120,35 @@ def test_port_imports_no_jax():
         " make_cloud_frame)\n"
         "from hifi_fusion_tpu_torch.utils.synthetic import (make_sweep,"
         " pack_frame_q16, pad_frame)\n"
-        "f = make_sweep(small_test_config(), 1, 50, seed=1)[0]\n"
+        "from hifi_fusion_tpu_torch.io import downloads, pcd, ply\n"
+        "from hifi_fusion_tpu_torch.oracle.native import NativeOracle\n"
+        "from hifi_fusion_tpu_torch.runtime.sources import SyntheticSource\n"
+        "from hifi_fusion_tpu_torch.utils.profiling import StageTimers\n"
+        "cfg = small_test_config()\n"
+        "f = make_sweep(cfg, 1, 50, seed=1)[0]\n"
         "pad_frame(f, 64); pack_frame_q16(f, 64)\n"
         "xyz, _ = decode_frame(make_cloud_frame(f.points_cam, f.rgb))\n"
         "assert (xyz == f.points_cam).all()\n"
+        "d = tempfile.mkdtemp()\n"
+        "pcd.write_pcd_xyzrgb(os.path.join(d, 'a.pcd'), xyz, f.rgb)\n"
+        "assert pcd.read_pcd(os.path.join(d, 'a.pcd'))[1] == 50\n"
+        "ply.write_ply(os.path.join(d, 'a.ply'), xyz, f.rgb, xyz)\n"
+        "assert ply.read_ply(os.path.join(d, 'a.ply'))['xyz'].shape"
+        " == (50, 3)\n"
+        "h = {'centroid': xyz, 'rgb': f.rgb, 'normal': xyz}\n"
+        "assert downloads.download_with_normals(h)['xyz'].shape == (50, 3)\n"
+        "o = NativeOracle(cfg)\n"
+        "for fr in make_sweep(cfg, 2, 300, seed=2):\n"
+        "    o.integrate_frame(fr.points_cam, None, fr.pose)\n"
+        "o.refine(); assert o.n_voxels() > 0\n"
+        "assert len(SyntheticSource(cfg, 2, 10)) == 2\n"
+        "t = StageTimers()\n"
+        "with t.stage('decode'): pass\n"
+        "assert list(t.report()) == ['decode']\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hifi_fusion_tpu' or m.startswith('hifi_fusion_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert n >= 16, n\n"
+        "assert n >= 31, n\n"
         "print('ok', n)\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT

@@ -9,7 +9,7 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA, no run;
-2. a fresh build of the eight CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
+2. a fresh build of the ten CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
    register / spill report, and of the two host libraries (``g++``: the
    native host runtime, ``runtime/native``, and the C++ oracle,
@@ -25,13 +25,21 @@ and prints no result line):
    fusion integrate, the refine's line cells and the TSDF batch, on the
    key table and ids those calls get, captured from the port's own
    paths), K2 and K4 behind a read that leaves the L2 cold, as the main
-   path does; beside each time the kernel's bound (the least time the
+   path does; T2p on the planar wire of a config-5 K=8 batch decoded from
+   phase 7's records (bit-equal keys and values, the same valid lanes as
+   T2's depth batch); B11 at r=2 over all 2^22 slots of the fusion
+   replay's final grid (built here through the pipeline at phase 4's
+   cadence), counts exact against its plain version (the JAX package's
+   lookup form), timed there and over the occupied slots alone; beside
+   each time the kernel's bound (the least time the
    card could take for the same inputs,
    ``hifi_fusion_tpu_torch/bounds.py``) and the share of it reached, for
    K2 each shape's ids, new ids and load factor, for K4 its candidates,
-   gated candidates and window words, and for T1 the time of one PyTorch
-   call that computes its segment totals (``torch.segment_reduce``), a
-   yardstick the port never calls;
+   gated candidates and window words, for T1 the time of one PyTorch
+   call that computes its segment totals (``torch.segment_reduce``) and
+   for B11 that of one ``avg_pool3d`` summing every window of the dense
+   occupancy volume (its counts at the queried cells checked equal),
+   yardsticks the port never calls;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -70,7 +78,35 @@ and prints no result line):
    reclamation as the config says), its extract held to phase 4's under
    ``checks.parity_gates`` and a unit-normal agreement gate
    (bench.py:709-775); prints the oracle's seconds and Mpts/s on this
-   host, single-threaded.
+   host, single-threaded;
+10. the TSDF planar replay: the config-5 ``FusionSession(model="tsdf")``
+    takes phase 7's 96 records through ``push_frame`` (K=8), then
+    ``process()``; checks overflow counters, that the surface holds phase
+    6's depth-replay cells and integer weights with tsdf values within
+    ``checks.TSDF_TOL`` (the records are the depth wire's unprojection,
+    bit for bit), and that T2p, T1, K2 and T3 launched; prints the rate,
+    the host decode and the stage timers;
+11. the queries (BASELINE config 4) on phase 4's checkpoint:
+    ``radius_outlier_mask`` (r=2, min_neighbors=5), ``occupied_neighbor_
+    counts`` of the occupied slots (by cell, phase 3's B11 counts) and
+    ``query_points`` of one frame's 307,200 world points; prints the
+    voxels kept and removed and each call's ms;
+12. the command line on the card: ``cli synth --wire depth`` of 16
+    640x480 frames with a JSON ``--config`` of the bench config and
+    ``fuse`` of it, ``fuse --model tsdf`` of a 16-frame xyzrgb sweep at
+    config 5, and ``fuse --export-variants hq,normals`` of a capture
+    directory written from 8 of phase 7's records, each held to a direct
+    session of the same frames (the PCD's rows and the CSV's counts);
+    then ``cmd_serve`` on a thread at 127.0.0.1:0 (``--warm
+    --live-batching``, socket timeouts): rays, 16 ``depth_frame``s, 4
+    ``frame``s, ``metrics``, ``process`` and ``shutdown``, its extract
+    held to a direct session's;
+13. the paced live session (BASELINE config 3): a ``warm()``ed
+    ``live_batching`` bench-config session takes the 96 frames through
+    ``push_depth_frame`` at 30 Hz; checks that no frame was dropped and
+    that the extract holds phase 4's cells and counts; prints the lag from
+    the last arrival to the end of ``drain()`` and how many dispatches
+    were batched.
 
 The last lines are a JSON object of per-kernel results (K2's entry holds
 its integrate shape's numbers and, under ``shapes``, every shape's), the
@@ -80,9 +116,12 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -117,11 +156,21 @@ KERNELS = {
                      "hifi_fusion_tpu/models/tsdf.py:228"),
     "planar_frontend": ("hifi_fusion_tpu_torch/csrc/planar_frontend.cu",
                         "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
+    "tsdf_lanes_planar": ("hifi_fusion_tpu_torch/csrc/tsdf_lanes.cu",
+                          "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
+    "neighbor_count": ("hifi_fusion_tpu_torch/csrc/neighbor_count.cu",
+                       "hifi_fusion_tpu/ops/queries.py:41"),
 }
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
 PLANAR_PATH = ("planar_frontend", "hash_insert", "dep_stream", "normal_fit")
 TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
+TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "hash_insert",
+                    "tsdf_surface")
+QUERY_PATH = ("neighbor_count",)
+CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
+            "hash_insert", "dep_stream", "normal_fit", "segscan",
+            "tsdf_surface")
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
 # tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
@@ -132,31 +181,35 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# bench.py:bench_config (bench.py:361-406) with the fields the port reads;
+# its TPU lane budgets and tiers are not read by the port
+BENCH_FIELDS = dict(
+    max_batch_frames=8,
+    bbox=(-0.35, 0.35, -0.35, 0.35, 0.0, 0.4),
+    resolution=(0.001, 0.001, 0.001),
+    capacity_log2=22,
+    max_points=WIDTH * HEIGHT,
+    buffer_capacity_log2=22,
+    max_refine_candidates=1 << 18,
+    max_dependants=10,
+    refine_every=8,
+    z_clip=(0.28, 0.6),
+)
+# the TSDF config 5 changes to it (tools/tsdf_bench.py:39-76)
+TSDF_FIELDS = dict(resolution=(0.0008, 0.0008, 0.0008), capacity_log2=24,
+                   max_unique_per_frame=1 << 19, refine_every=0)
+
+
 def bench_config(FusionConfig):
-    """bench.py:bench_config (bench.py:361-406) with the fields the port
-    reads; its TPU lane budgets and tiers are not read by the port."""
-    return FusionConfig(
-        max_batch_frames=8,
-        bbox=(-0.35, 0.35, -0.35, 0.35, 0.0, 0.4),
-        resolution=(0.001, 0.001, 0.001),
-        capacity_log2=22,
-        max_points=WIDTH * HEIGHT,
-        buffer_capacity_log2=22,
-        max_refine_candidates=1 << 18,
-        max_dependants=10,
-        refine_every=8,
-        z_clip=(0.28, 0.6),
-    ).validate()
+    return FusionConfig(**BENCH_FIELDS).validate()
 
 
 def tsdf_config(FusionConfig, TsdfConfig):
     """TSDF config 5 as tools/tsdf_bench.py:39-76 runs it: the bench
     config at 0.8 mm pitch over the same bbox (875 x 875 x 500 cells), a
     2^24-slot table, 2^19 uniques a frame, no refine, K=8."""
-    base = dataclasses.replace(
-        bench_config(FusionConfig), resolution=(0.0008, 0.0008, 0.0008),
-        capacity_log2=24, max_unique_per_frame=1 << 19,
-        refine_every=0).validate()
+    base = dataclasses.replace(bench_config(FusionConfig),
+                               **TSDF_FIELDS).validate()
     return TsdfConfig(base=base, **TSDF_PARAMS)
 
 
@@ -436,11 +489,11 @@ def check_kernels(torch, cfg, frames, rays, dev):
     return res
 
 
-def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
+def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     """Phase 3, TSDF config 5: T2 and T1 on the sweep's third K=8 batch
-    (27.0 M sample lanes), T3 on the surface of a grid after two batches,
-    K2 on that batch's insert into that grid.  Returns {name: ``timed``
-    entry}."""
+    (27.0 M sample lanes), T2p on the same frames' records, T3 on the
+    surface of a grid after two batches, K2 on that batch's insert into
+    that grid.  Returns {name: ``timed`` entry}."""
     from hifi_fusion_tpu_torch import bounds
     from hifi_fusion_tpu_torch.models import tsdf
     from hifi_fusion_tpu_torch.ops import hashing, scatter
@@ -468,6 +521,31 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
         lambda: tsdf.tsdf_lanes_plain(*b2, rays, tcfg), tuple)
     res["tsdf_lanes"] = timed(err, ms, pms, bounds.tsdf_lanes(
         *b2[0].shape, tcfg.n_samples))
+
+    # T2p: bit-exact on the session's planar wire of the same frames'
+    # records, whose valid lanes are T2's
+    wire = record_wire(torch, clouds[2 * K:3 * K], tcfg.base.max_points,
+                       dev)
+    got = tsdf.tsdf_lanes_planar(*wire, tcfg)
+    want = tsdf.tsdf_lanes_planar_plain(*wire, tcfg)
+    err = max_err(zip(got, want))
+    if not all(bits_equal(torch, g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"tsdf_lanes_planar differs from plain: {err}")
+    del want
+    if not torch.equal(torch.sort(got[0]).values,
+                       torch.sort(lanes[0]).values):
+        raise AssertionError("tsdf_lanes_planar: the records' lanes hold "
+                             "other cells than the depth batch's")
+    log(f"phase 3: tsdf_lanes_planar: bit-exact, "
+        f"{int((got[0] != tsdf.BIG).sum())} valid lanes of "
+        f"{got[0].numel()}, the depth batch's cells")
+    del got
+    ms, pms = time_pair(
+        torch, lambda: tsdf.tsdf_lanes_planar(*wire, tcfg),
+        lambda: tsdf.tsdf_lanes_planar_plain(*wire, tcfg), tuple)
+    res["tsdf_lanes_planar"] = timed(err, ms, pms, bounds.tsdf_lanes_planar(
+        K, tcfg.base.max_points, tcfg.n_samples))
+    del wire
 
     # T1: bit-exact for every kind, on the batch's sorted lanes and on a
     # flat-ladder prefix (n <= 1024)
@@ -516,6 +594,111 @@ def check_tsdf_kernels(torch, tcfg, frames, rays, dev):
     res["hash_insert/tsdf"] = check_insert(torch, table, ids,
                                            tcfg.base.max_probes, "tsdf")
     return res
+
+
+def record_wire(torch, clouds, N, dev):
+    """The session's planar wire of K ``(CloudFrame, pose)`` records:
+    each decoded by ``decode_frame`` into a count prefix of (K,3,N) f32
+    points and colour, as ``FusionSession._decode_planar`` packs them, and
+    the (K,4,4) poses, on ``dev``."""
+    from hifi_fusion_tpu_torch.runtime.decode import decode_frame
+    K = len(clouds)
+    pts = np.zeros((K, 3, N), np.float32)
+    rgb = np.zeros((K, 3, N), np.float32)
+    counts = np.zeros((K,), np.int32)
+    for k, (frame, _) in enumerate(clouds):
+        xyz, col = decode_frame(frame)
+        n = xyz.shape[0]
+        pts[k, :, :n], rgb[k, :, :n], counts[k] = xyz.T, col.T, n
+    poses = np.stack([p for _, p in clouds]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (pts, rgb, counts, poses))
+
+
+def fusion_final_grid(cfg, frames, rays, dev):
+    """The fusion replay's final grid through the pipeline, at phase 4's
+    cadence: every K=8 batch, a refine after each batch holding a mark."""
+    from hifi_fusion_tpu_torch.models.pipeline import (FusionPipeline,
+                                                       refine_due)
+    pipe = FusionPipeline(cfg, dev)
+    grid = pipe.init()
+    K = cfg.max_batch_frames
+    for i in range(len(frames) // K):
+        fs = frames[K * i:K * i + K]
+        pipe.step_batch_depth(
+            grid, pipe.put(np.stack([f.depth_q for f in fs])),
+            pipe.put(np.stack([f.rgb565 for f in fs])),
+            pipe.put(np.full((K,), fs[0].count, np.int32)),
+            pipe.put(np.stack([f.pose for f in fs])), rays)
+        if refine_due(K * (i + 1), K, cfg):
+            pipe.refine(grid)
+    return grid
+
+
+def check_neighbor_count(torch, cfg, frames, rays, dev):
+    """Phase 3, B11: r=2 over every slot of the fusion replay's final grid
+    (-1 where no point landed) against its plain version, counts exact,
+    timed with its bound and the ``avg_pool3d`` yardstick.  Returns the
+    ``timed`` entry and the occupied cells (ascending) with their
+    counts."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.ops import queries
+    r = 2
+    grid = fusion_final_grid(cfg, frames, rays, dev)
+    C = cfg.capacity
+    occ = grid.n_pts > 0
+    slots = torch.where(occ, torch.arange(C, dtype=torch.int32, device=dev),
+                        torch.full((), -1, dtype=torch.int32, device=dev))
+    got = queries.occupied_neighbor_counts(grid, slots, cfg, r)
+    want = queries.neighbor_counts_plain(grid, slots, cfg, r)
+    if not torch.equal(got, want) or int(got.max()) <= 1:
+        raise AssertionError(f"neighbor_count differs from plain on "
+                             f"{int((got != want).sum())} of {C} slots")
+    live = torch.nonzero(occ).squeeze(1)
+    cells = grid.key[live]
+    words = bounds.normal_fit_words(cells, cfg.dims, r,
+                                    grid.occ_bits.numel())
+    log(f"phase 3: neighbor_count: {C} query slots, {live.numel()} "
+        f"occupied, counts exact, {words} distinct window words, r {r}")
+    lib_ms = neighbor_count_yardstick(torch, grid, cfg, r, cells, got[live])
+    # the ROR call's shape (every slot), and the occupied slots alone
+    shapes = {}
+    for shape, q in (("ror", slots), ("occupied", live.to(torch.int32))):
+        ms, pms = time_pair(torch, queries.occupied_neighbor_counts,
+                            queries.neighbor_counts_plain,
+                            lambda: (grid, q, cfg, r))
+        shapes[shape] = {**timed(0.0, ms, pms, bounds.neighbor_count(
+            q.numel(), live.numel(), words),
+            lib_ms if shape == "ror" else None), "Q": int(q.numel())}
+    order = torch.argsort(cells)
+    return ({**shapes["ror"], "n_live": int(live.numel()), "words": words,
+             "shapes": shapes},
+            cells[order].cpu().numpy(), got[live][order].cpu().numpy())
+
+
+def neighbor_count_yardstick(torch, grid, cfg, r, cells, counts) -> float:
+    """ms of one ``avg_pool3d`` (``divisor_override=1``) summing every
+    (2r+1)^3 window of the dense occupancy volume unpacked from the
+    bitmap: every cell's count, where B11 counts the queried ones; checked
+    equal to ``counts`` at ``cells``.  The unpacking is made outside the
+    timed window."""
+    import torch.nn.functional as F
+    n = int(np.prod(cfg.dims))
+    shifts = torch.arange(32, dtype=torch.int32, device=grid.device)
+    bits = (grid.occ_bits[:, None] >> shifts) & 1
+    vol = bits.reshape(-1)[:n].to(torch.float32).view(1, 1, *cfg.dims)
+    del bits
+
+    def pool(v):
+        return F.avg_pool3d(v, 2 * r + 1, stride=1, padding=r,
+                            divisor_override=1)
+
+    at = pool(vol).view(-1)[cells.long()]
+    if not torch.equal(at.to(torch.int32), counts):
+        raise AssertionError("avg_pool3d yardstick differs from B11")
+    ms = device_ms(torch, pool, lambda: (vol,))
+    del vol, at
+    return ms
 
 
 def check_surface(torch, tcfg, grid, shape) -> dict:
@@ -733,15 +916,13 @@ def path_launches(names) -> dict:
     return counts
 
 
-def planar_replay(torch, cfg, frames, depth_host, device, card) -> None:
-    """Phase 7: the depth ``frames`` as PointCloud2 records through
-    ``push_frame``; raises unless the counters stay zero and the extract
-    holds ``depth_host``'s cells with the same cylinder and point
-    counts."""
-    t0 = time.monotonic()
-    clouds = cloud_frames(frames)
+def planar_replay(torch, cfg, frames, clouds, depth_host, device,
+                  card) -> None:
+    """Phase 7: the depth ``frames`` as their PointCloud2 records
+    (``clouds``) through ``push_frame``; raises unless the counters stay
+    zero and the extract holds ``depth_host``'s cells with the same
+    cylinder and point counts."""
     n_pts = sum(f.n_points for f, _ in clouds)
-    t_make = time.monotonic() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         r, dt, t_proc, m = replay(torch, cfg, frames, None, device, tmp,
                                   clouds=clouds)
@@ -759,7 +940,7 @@ def planar_replay(torch, cfg, frames, depth_host, device, card) -> None:
                              f"cells {same}, problems {bad}")
     px = len(frames) * frames[0].depth_q.size
     log(f"phase 7: planar replay of {len(frames)} PointCloud2 frames "
-        f"({n_pts} points, records made in {t_make:.3f} s) in {dt:.3f} s "
+        f"({n_pts} points) in {dt:.3f} s "
         f"= {px / dt / 1e6:.3f} Mpts/s of pixels, {n_pts / dt / 1e6:.3f} "
         f"Mpts/s of points ({card}); host decode {m['decode_s']:.3f} s; "
         f"process() {t_proc:.3f} s; {n} voxels, the depth replay's cells, "
@@ -936,6 +1117,363 @@ def tsdf_card_vs_cpu(torch, scfg, srays, sframes) -> list:
     return problems
 
 
+def tsdf_planar_replay(torch, tcfg, frames, clouds, tsdf_host, dev,
+                       card) -> dict:
+    """Phase 10: the config-5 TSDF session takes the records through
+    ``push_frame``; raises unless the counters stay zero and the surface
+    holds ``tsdf_host``'s (phase 6's) cells and integer weights, tsdf
+    within ``checks.TSDF_TOL``.  Returns the path's launches."""
+    from hifi_fusion_tpu_torch import checks, kernels
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        kernels.reset_launches()
+        r, dt, t_proc, m = replay(torch, tcfg.base, frames, None, dev, tmp,
+                                  clouds=clouds, model="tsdf",
+                                  model_params=TSDF_PARAMS)
+        launches = path_launches(TSDF_PLANAR_PATH)
+        n = check_outputs(r)
+    host = r["host"]
+    bad = {k: m[k] for k in ("pose_failures", "frames_truncated",
+                             "points_truncated") if m[k]}
+    same = np.array_equal(host["cell"], tsdf_host["cell"])
+    if same and not np.array_equal(host["count"], tsdf_host["count"]):
+        bad["count"] = int((host["count"] != tsdf_host["count"]).sum())
+    err = (float(np.abs(host["mean_dist"].astype(np.float64)
+                        - tsdf_host["mean_dist"]).max()) if same else None)
+    if not same or bad or err > checks.TSDF_TOL["tsdf"]:
+        raise AssertionError(f"TSDF planar replay: {n} surface voxels "
+                             f"against the depth replay's "
+                             f"{tsdf_host['cell'].size}, same cells {same}, "
+                             f"tsdf error {err}, problems {bad}")
+    px = len(frames) * frames[0].depth_q.size
+    log(f"phase 10: TSDF config 5, {len(frames)} PointCloud2 frames in "
+        f"{dt:.3f} s = {px / dt / 1e6:.3f} Mpts/s of pixels ({card}); host "
+        f"decode {m['decode_s']:.3f} s; process() {t_proc:.3f} s; {n} "
+        f"surface voxels, phase 6's cells and weights, tsdf within "
+        f"{err:.3g}; launches {launches}; {json.dumps(r['grid_metrics'])}")
+    log(f"phase 10: stage timers {json.dumps(m['stage_timers'])}")
+    return launches
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(torch, dev, fn):
+    """``(fn(), host ms)`` of one call that ends in a synchronize."""
+    sync(torch, dev)
+    t0 = time.monotonic()
+    out = fn()
+    sync(torch, dev)
+    return out, (time.monotonic() - t0) * 1e3
+
+
+def queries_phase(torch, cfg, frames, state_path, b11, dev, card) -> dict:
+    """Phase 11: the three queries on phase 4's checkpoint; raises unless
+    its occupied cells and their window counts are phase 3's (``b11``:
+    ascending cells and B11's counts on the pipeline's final grid), the
+    ROR mask keeps exactly the cells whose count less one reaches 5, and
+    nearly every valid pixel of a frame lands in an occupied voxel.
+    Returns the path's launches."""
+    from hifi_fusion_tpu_torch import kernels
+    from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
+    from hifi_fusion_tpu_torch.ops import queries
+    pipe = FusionPipeline(cfg, dev)
+    with np.load(state_path) as z:
+        grid = pipe.put_state({f: z[f] for f in z.files})
+    occ = grid.n_pts > 0
+    f = frames[0]
+    world = (f.pose[:3, :3].astype(np.float64) @ f.points_f32
+             + f.pose[:3, 3:]).astype(np.float32)
+    pts = pipe.put(world)
+    kernels.reset_launches()
+    keep, ms_ror = host_ms(torch, dev, lambda: queries.radius_outlier_mask(
+        grid, cfg, radius_cells=2, min_neighbors=5))
+    slots = torch.nonzero(occ).squeeze(1).to(torch.int32)
+    counts, ms_cnt = host_ms(torch, dev, lambda: (
+        queries.occupied_neighbor_counts(grid, slots, cfg, radius_cells=2)))
+    q, ms_q = host_ms(torch, dev, lambda: queries.query_points(grid, pts,
+                                                               cfg))
+    launches = path_launches(QUERY_PATH)
+    cells = grid.key[slots.long()]
+    order = torch.argsort(cells)
+    same = (np.array_equal(cells[order].cpu().numpy(), b11[0])
+            and np.array_equal(counts[order].cpu().numpy(), b11[1]))
+    kept, n_occ = int(keep.sum()), int(occ.sum())
+    want = int(((counts - 1) >= 5).sum())
+    valid = pipe.put(f.depth_q > 0) & (q.slot >= 0)
+    share = float(q.occupied[valid].float().mean())
+    if not same or kept != want or bool((keep & ~occ).any()) \
+            or share < 0.99 or int(q.count.sum()) <= 0:
+        raise AssertionError(f"queries: phase 3's cells and counts {same}, "
+                             f"kept {kept} (want {want}), occupied share of "
+                             f"a frame's points {share}")
+    log(f"phase 11: queries on phase 4's grid ({card}): "
+        f"radius_outlier_mask (r=2, min_neighbors=5) keeps {kept} of "
+        f"{n_occ} voxels, removes {n_occ - kept}, {ms_ror:.3f} ms; "
+        f"occupied_neighbor_counts of {slots.numel()} occupied slots "
+        f"{ms_cnt:.3f} ms (phase 3's counts by cell); query_points of "
+        f"{pts.shape[1]} world points {ms_q:.3f} ms, {int(valid.sum())} in "
+        f"the table, occupied share {share:.6f}, "
+        f"{int(q.normal_found.sum())} with a normal; launches {launches}")
+    return launches
+
+
+def run_cli(cli, argv):
+    """``cli.main(argv)`` with its stdout captured; its last line, as JSON
+    where it parses."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    last = buf.getvalue().strip().splitlines()[-1]
+    return json.loads(last) if last.startswith("{") else last
+
+
+def same_cloud(a, b, what) -> int:
+    """Two ``process()`` results (or ``cli fuse`` lines): the same PCD rows
+    (positions and normals within 1e-6, colours equal) and the same CSV
+    counts; returns the rows."""
+    from hifi_fusion_tpu_torch.io.pcd import read_metadata_csv, read_pcd
+    ca, na = read_pcd(a["cloud"])
+    cb, nb = read_pcd(b["cloud"])
+    counts = [read_metadata_csv(r["metadata"])["count"] for r in (a, b)]
+    ok = na == nb > 0 and list(ca) == list(cb) and np.array_equal(*counts)
+    for k in ca if ok else ():
+        if k == "rgb":
+            ok = ok and np.array_equal(ca[k].view(np.uint32),
+                                       cb[k].view(np.uint32))
+        else:
+            ok = ok and np.allclose(ca[k], cb[k], rtol=0.0, atol=1e-6)
+    if not ok:
+        raise AssertionError(f"{what}: {na} rows against a direct "
+                             f"session's {nb}, or other counts or rows")
+    return na
+
+
+def direct_session(cfg, dev, out, depth=(), rays=None, clouds=(), **kw):
+    """A session on the card fed the ``(depth_q, rgb565, pose)`` frames
+    ``depth``, then the ``(CloudFrame, pose)`` records ``clouds``, drained
+    and ``process()``ed."""
+    from hifi_fusion_tpu_torch.runtime.session import FusionSession
+    with FusionSession(cfg, dev, output_dir=out, **kw) as s:
+        s.start()
+        for dq, r565, pose in depth:
+            s.push_depth_frame(dq, r565, pose, rays=rays)
+        for frame, pose in clouds:
+            s.push_frame(frame, pose)
+        if not s.drain(900):
+            raise AssertionError("direct session did not drain")
+        return s.process()
+
+
+def write_capture(directory, clouds) -> None:
+    """A capture directory: each record's decoded points and colour as a
+    binary PCD, and a CSV trajectory of 16 matrix entries a row."""
+    from hifi_fusion_tpu_torch.io.pcd import write_pcd_xyzrgb
+    from hifi_fusion_tpu_torch.runtime.decode import decode_frame
+    os.makedirs(directory)
+    rows = []
+    for i, (frame, pose) in enumerate(clouds):
+        xyz, rgb = decode_frame(frame)
+        write_pcd_xyzrgb(os.path.join(directory, f"frame_{i:04d}.pcd"),
+                         xyz, rgb, ascii_mode=False)
+        rows.append(",".join(repr(float(v)) for v in pose.reshape(-1)))
+    with open(os.path.join(directory, "poses.csv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+
+
+def cli_phase(torch, cfg, tcfg, frames, clouds, rays_np, dev, card) -> dict:
+    """Phase 12: ``synth``, ``fuse`` (depth sweep, TSDF xyzrgb sweep,
+    capture directory) and ``serve`` through ``runtime/cli.py`` on the
+    card, each held to a direct session.  Returns the launches of the
+    CLI's runs."""
+    from hifi_fusion_tpu_torch import kernels
+    from hifi_fusion_tpu_torch.runtime import cli
+    from hifi_fusion_tpu_torch.runtime.sources import (load_depth_sweep,
+                                                       load_sweep)
+    n_px = WIDTH * HEIGHT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        conf, tconf = os.path.join(tmp, "bench.json"), os.path.join(
+            tmp, "tsdf.json")
+        with open(conf, "w") as fh:
+            json.dump(BENCH_FIELDS, fh)
+        with open(tconf, "w") as fh:
+            json.dump({**BENCH_FIELDS, **TSDF_FIELDS,
+                       "tsdf": TSDF_PARAMS}, fh)
+        dsweep, xsweep = (os.path.join(tmp, f"{w}.npz")
+                          for w in ("depth", "xyzrgb"))
+        t0 = time.monotonic()
+        run_cli(cli, ["synth", "--wire", "depth", "--frames", "16",
+                      "--points", str(n_px), "--width", str(WIDTH),
+                      "--config", conf, "--output", dsweep])
+        run_cli(cli, ["synth", "--wire", "xyzrgb", "--frames", "16",
+                      "--points", str(n_px), "--config", tconf,
+                      "--output", xsweep])
+        t_synth = time.monotonic() - t0
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        fd = run_cli(cli, ["fuse", "--sweep", dsweep, "--config", conf,
+                           "--device", dev,
+                           "--output", os.path.join(tmp, "fd")])
+        ft = run_cli(cli, ["fuse", "--sweep", xsweep, "--config", tconf,
+                           "--model", "tsdf", "--device", dev,
+                           "--output", os.path.join(tmp, "ft")])
+        cap = os.path.join(tmp, "capture")
+        write_capture(cap, clouds[:8])
+        fc = run_cli(cli, ["fuse", "--sweep", cap, "--config", conf,
+                           "--export-variants", "hq,normals",
+                           "--device", dev,
+                           "--output", os.path.join(tmp, "fc")])
+        t_fuse = time.monotonic() - t0
+        served, t_serve = serve_on_thread(cli, conf, tmp, frames[:16],
+                                          clouds[16:20], rays_np, dev)
+        launches = path_launches(CLI_PATH)
+        dframes, drays = load_depth_sweep(dsweep)
+        rows = {
+            "fuse depth": same_cloud(fd, direct_session(
+                cfg, dev, os.path.join(tmp, "dd"), depth=dframes, rays=drays,
+                batch_fill_wait=10.0), "fuse depth"),
+            "fuse tsdf": same_cloud(ft, direct_session(
+                tcfg.base, dev, os.path.join(tmp, "dt"),
+                batch_fill_wait=10.0,
+                clouds=list(load_sweep(xsweep)), model="tsdf",
+                model_params=TSDF_PARAMS), "fuse --model tsdf"),
+            "fuse capture": same_cloud(fc, direct_session(
+                cfg, dev, os.path.join(tmp, "dc"), batch_fill_wait=10.0,
+                clouds=clouds[:8]), "fuse capture"),
+            "serve": same_cloud(served, direct_session(
+                cfg, dev, os.path.join(tmp, "ds"), rays=rays_np,
+                depth=[(f.depth_q, f.rgb565, f.pose) for f in frames[:16]],
+                clouds=clouds[16:20]), "serve"),
+        }
+        from hifi_fusion_tpu_torch.io.pcd import read_pcd
+        variants = {v: read_pcd(p)[1] for v, p in fc["variants"].items()}
+    if set(variants) != {"hq", "normals"} or not variants["normals"]:
+        raise AssertionError(f"fuse capture variants {variants}")
+    log(f"phase 12: cli on the card ({card}): synth of two 16-frame "
+        f"{WIDTH}x{HEIGHT} sweeps {t_synth:.3f} s; fuse depth, fuse "
+        f"--model tsdf and fuse of a capture directory {t_fuse:.3f} s; serve "
+        f"{t_serve:.3f} s; rows held to direct sessions {rows}; capture "
+        f"variant rows {variants}; fuse depth {fd['frames_per_s']} "
+        f"frames/s; launches {launches}")
+    return launches
+
+
+def serve_on_thread(cli, conf, tmp, depth, clouds, rays_np, dev):
+    """``cmd_serve`` (``--port 0 --warm --live-batching``) on a thread; a
+    client with socket timeouts sends rays, the depth frames as
+    ``depth_frame``s, the records as ``frame``s, ``metrics``, ``process``
+    and ``shutdown``.  Returns the ``process`` reply and the seconds from
+    the server's start to its thread's end."""
+    import queue
+    import socket
+    import threading
+    args = cli.parse_args(["serve", "--port", "0", "--config", conf,
+                           "--device", dev,
+                           "--output", os.path.join(tmp, "serve"),
+                           "--warm", "--live-batching"])
+    ready = queue.Queue()
+    t0 = time.monotonic()
+    t = threading.Thread(target=cli.cmd_serve, args=(args, ready.put),
+                         daemon=True, name="serve")
+    t.start()
+    server = ready.get(timeout=600)
+
+    def send(sock, obj, blob=b""):
+        sock.sendall((json.dumps(obj) + "\n").encode() + blob)
+
+    try:
+        with socket.create_connection(server.server_address[:2],
+                                      timeout=300) as sock, \
+                sock.makefile("rb") as rf:
+            def reply():
+                r = json.loads(rf.readline())
+                if not r.get("ok"):
+                    raise AssertionError(f"serve replied {r}")
+                return r
+
+            send(sock, {"cmd": "start"})
+            reply()
+            send(sock, {"cmd": "rays", "n": rays_np.shape[1]},
+                 rays_np.astype("<f4").tobytes())
+            reply()
+            for f in depth:
+                send(sock, {"cmd": "depth_frame", "n": f.depth_q.size,
+                            "pose": f.pose.reshape(-1).tolist()},
+                     f.depth_q.astype("<u2").tobytes()
+                     + f.rgb565.astype("<u2").tobytes())
+                if not reply()["accepted"]:
+                    raise AssertionError("depth_frame not accepted")
+            for frame, pose in clouds:
+                send(sock, {"cmd": "frame", "n": frame.width,
+                            "pose": pose.reshape(-1).tolist()}, frame.data)
+                if not reply()["accepted"]:
+                    raise AssertionError("frame not accepted")
+            send(sock, {"cmd": "metrics"})
+            m = reply()["metrics"]
+            if m["frames_received"] != len(depth) + len(clouds):
+                raise AssertionError(f"serve received {m}")
+            send(sock, {"cmd": "process"})
+            out = reply()
+            send(sock, {"cmd": "shutdown"})
+            reply()
+    finally:
+        server.shutdown()
+        t.join(timeout=300)
+    if t.is_alive():
+        raise AssertionError("serve thread did not end")
+    return out, time.monotonic() - t0
+
+
+def live_phase(torch, cfg, frames, rays_np, depth_host, dev, card) -> dict:
+    """Phase 13: a ``warm()``ed ``live_batching`` session takes the sweep
+    through ``push_depth_frame`` at 30 Hz; raises on a dropped frame or an
+    extract other than ``depth_host``'s cells and counts.  Returns the
+    path's launches."""
+    from hifi_fusion_tpu_torch import kernels
+    from hifi_fusion_tpu_torch.runtime.session import (FusionSession,
+                                                       batch_frames)
+    period = 1.0 / 30.0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+            FusionSession(cfg, dev, live_batching=True,
+                          output_dir=tmp) as s:
+        t_warm = s.warm(rays_np, extract=True, depth=True)
+        kernels.reset_launches()
+        s.start()
+        t0 = time.monotonic()
+        for i, f in enumerate(frames):
+            time.sleep(max(t0 + i * period - time.monotonic(), 0.0))
+            s.push_depth_frame(f.depth_q, f.rgb565, f.pose, rays=rays_np)
+        t_last = time.monotonic()
+        if not s.drain(900):
+            raise AssertionError("live session did not drain")
+        lag = time.monotonic() - t_last
+        m = s.metrics()
+        r = s.process()
+        launches = path_launches(FUSION_PATH)
+    host = r["host"]
+    same = all(np.array_equal(host[k], depth_host[k])
+               for k in ("cell", "count", "n_pts"))
+    if m["frames_dropped_backpressure"] or m["frames_integrated"] != len(
+            frames) or not same:
+        raise AssertionError(f"live session: {m['frames_integrated']} "
+                             f"frames, {m['frames_dropped_backpressure']} "
+                             f"dropped, phase 4's cells and counts {same}")
+    K = batch_frames(cfg)
+    steps = m["stage_timers"]["device_step"]
+    batched = (len(frames) - steps["count"]) // (K - 1)
+    log(f"phase 13: live session at 30 Hz ({card}): warm() {t_warm:.3f} s; "
+        f"{len(frames)} frames over {t_last - t0:.3f} s, 0 dropped; lag "
+        f"from the last arrival to the end of drain() {lag:.4f} s; "
+        f"{steps['count']} dispatches, {batched} of them K={K} batches; "
+        f"device_step mean {steps['mean_ms']} ms; {r['n_points']} voxels, "
+        f"phase 4's cells and counts; launches {launches}")
+    log(f"phase 13: stage timers {json.dumps(m['stage_timers'])}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -984,13 +1522,19 @@ def main() -> int:
                               srays=rays_np, arc_frames=ARC_FRAMES)
     log(f"phase 3: sweep of {FRAMES} frames made in "
         f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    clouds = cloud_frames(frames)
+    log(f"phase 3: the sweep's PointCloud2 records made in "
+        f"{time.monotonic() - t0:.1f} s")
     rays = torch.from_numpy(rays_np).cuda()
+    dev = torch.device("cuda")
     tcfg = tsdf_config(FusionConfig, TsdfConfig)
-    kres = check_kernels(torch, cfg, frames, rays, torch.device("cuda"))
-    kres["planar_frontend"] = check_planar_frontend(torch, cfg, frames,
-                                                    torch.device("cuda"))
-    kres.update(check_tsdf_kernels(torch, tcfg, frames, rays,
-                                   torch.device("cuda")))
+    kres = check_kernels(torch, cfg, frames, rays, dev)
+    kres["planar_frontend"] = check_planar_frontend(torch, cfg, frames, dev)
+    kres.update(check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev))
+    torch.cuda.empty_cache()
+    kres["neighbor_count"], *b11 = check_neighbor_count(torch, cfg, frames,
+                                                        rays, dev)
     for name, r in kres.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")
@@ -1058,6 +1602,7 @@ def main() -> int:
                                   model_params=TSDF_PARAMS)
         tsdf_launches = path_launches(TSDF_PATH)
         n = check_outputs(r)
+    tsdf_host = r["host"]
     gm = r["grid_metrics"]
     if gm["frames"] != FRAMES:
         raise AssertionError(f"TSDF grid counted {gm['frames']} frames")
@@ -1073,28 +1618,38 @@ def main() -> int:
 
     # -- phase 7 -------------------------------------------------------
     kernels.reset_launches()
-    planar_replay(torch, cfg, frames, depth_host, "cuda", card)
+    planar_replay(torch, cfg, frames, clouds, depth_host, "cuda", card)
     planar_launches = path_launches(PLANAR_PATH)
     log(f"phase 7: launches {planar_launches}")
 
     # -- phase 8 -------------------------------------------------------
     state_round_trip(torch, cfg, rays_np, state_path, depth_host, "cuda",
                      card)
-    state_dir.cleanup()
 
     # -- phase 9 -------------------------------------------------------
     oracle_sweep(cfg, frames, depth_host, card)
 
-    # launches: the sum over the three main-path runs (phases 4, 6 and 7);
-    # K2's entry holds its integrate shape's numbers and every shape's
+    # -- phases 10-13 ----------------------------------------------------
+    runs = [fusion_launches, tsdf_launches, planar_launches]
+    runs.append(tsdf_planar_replay(torch, tcfg, frames, clouds, tsdf_host,
+                                   "cuda", card))
+    runs.append(queries_phase(torch, cfg, frames, state_path, b11, "cuda",
+                              card))
+    state_dir.cleanup()
+    runs.append(cli_phase(torch, cfg, tcfg, frames, clouds, rays_np, "cuda",
+                          card))
+    runs.append(live_phase(torch, cfg, frames, rays_np, depth_host, "cuda",
+                           card))
+
+    # launches: the sum over the main-path runs (phases 4, 6, 7 and
+    # 10-13); K2's entry holds its integrate shape's numbers and every
+    # shape's
     shapes = {k.split("/")[1]: kres.pop(k) for k in list(kres)
               if k.startswith("hash_insert/")}
     kres["hash_insert"] = {**shapes["integrate"], "shapes": shapes}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (fusion_launches[name] + tsdf_launches[name]
-                      + planar_launches[name]),
-         **kres[name]}
+         "launches": sum(run[name] for run in runs), **kres[name]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

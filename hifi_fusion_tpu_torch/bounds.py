@@ -120,8 +120,9 @@ def normal_fit(U: int, n_gated: int, n_words: int) -> dict:
 
 def normal_fit_words(ids: torch.Tensor, dims, k: int, W: int) -> int:
     """The distinct bitmap words K4 reads for candidates with cell ids
-    ``ids``: two words per in-bounds (dx, dy) column of the (2k+1)^2
-    window, as the kernel addresses them."""
+    ``ids`` (and B11 for queries of those cells at radius k): two words
+    per in-bounds (dx, dy) column of the (2k+1)^2 window, as the kernels
+    address them."""
     ids = ids.long()
     dz = dims[2]
     cz, cy, cx = ids % dz, (ids // dz) % dims[1], (ids // dz) // dims[1]
@@ -149,6 +150,25 @@ def tsdf_lanes(K: int, N: int, S: int) -> dict:
     sample."""
     return bound(K * N * 4 + 12 * N + K * (4 + 64) + K * N * S * 28,
                  K * N * (40 + 12 * S))
+
+
+def tsdf_lanes_planar(K: int, N: int, S: int, mask_bytes: int = 0) -> dict:
+    """T2p on K frames of N points and S samples a point: 12 B of f32
+    camera points and 12 B of f32 colour a point, the mask (1 B a point,
+    or a 4 B count a frame with ``mask_bytes=0``) and the poses in; an i32
+    key and six f32 values (28 B) a sample lane out.  ~40 f32 operations
+    a point and ~12 a sample."""
+    per_frame = 64 + (4 if mask_bytes == 0 else 0)
+    return bound(K * N * (24 + mask_bytes) + K * per_frame
+                 + K * N * S * 28, K * N * (40 + 12 * S))
+
+
+def neighbor_count(Q: int, n_live: int, n_words: int) -> dict:
+    """B11 on Q query slots of which ``n_live`` are not -1: each slot read
+    and each count written (8 B a query), a live query's key read (4 B),
+    and the ``n_words`` distinct 4 B bitmap words under the live queries'
+    windows read once (``normal_fit_words``).  No f32 operations."""
+    return bound(8 * Q + 4 * n_live + 4 * n_words)
 
 
 def tsdf_surface(E: int) -> dict:

@@ -1,4 +1,4 @@
-// Shared definitions of the port's CUDA kernels (K1-K4).
+// Shared definitions of the port's CUDA kernels.
 //
 // Every kernel takes the grid geometry as one by-value struct built on the
 // host from two small arrays (kernels/__init__.py geometry_args): origin,
@@ -59,6 +59,46 @@ __device__ __forceinline__ void center_of_id(const Geo& g, int id,
     for (int a = 0; a < 3; ++a)
         c[a] = __fmaf_rn(g.res[a], __fadd_rn((float)v[a], 0.5f),
                          g.origin[a]);
+}
+
+// The occupancy window of kernels K4 (normal_fit.cu) and B11
+// (neighbor_count.cu): column c of the (2k+1)^2 (dx, dy) columns of a
+// window around cell (cx, cy, cz), read from the cell-id-keyed bitmap
+// as two 32-bit words cut to the column's (2k+1)-bit z window.
+
+// the bitmap bit of cell (cx + dx, cy + dy, cz) for column c = (dx + k) *
+// S + (dy + k) of the window, or -1 for a column past NC or outside the
+// grid
+__device__ __forceinline__ int column_base(const Geo& g, int cx, int cy,
+                                          int cz, int c, int S, int k,
+                                          int NC) {
+    const int nx = cx + c / S - k, ny = cy + c % S - k;
+    if (c >= NC || nx < 0 || nx >= g.dims[0] || ny < 0 || ny >= g.dims[1])
+        return -1;
+    return (nx * g.dims[1] + ny) * g.dims[2] + cz;
+}
+
+// the column's z window: bit t = dz + k holds cell (.., cz + dz), from
+// the two bitmap words at and after bit shpos = max(colbase - k, 0), the
+// words the JAX package reads; bit t lies at bit t - off of the 32 bits
+// from shpos, where off > 0 only near the bitmap's start (bitpos < 0)
+__device__ __forceinline__ uint32_t column_window(uint32_t w0, uint32_t w1,
+                                                  int colbase, int k,
+                                                  uint32_t zmask) {
+    const int shpos = max(colbase - k, 0);
+    const int off = shpos - (colbase - k);
+    const uint32_t b0 = (uint32_t)(shpos & 31);
+    const uint32_t win = (w0 >> b0) | (b0 > 0 ? w1 << (32 - b0) : 0u);
+    return (win << off) & zmask;
+}
+
+// the z bits t of a column's window whose cell cz + t - k lies inside the
+// grid
+__device__ __forceinline__ uint32_t z_window_mask(const Geo& g, int cz,
+                                                  int k) {
+    const int zlo = max(0, k - cz);
+    const int zhi = min(2 * k, g.dims[2] - 1 - cz + k);
+    return zhi < zlo ? 0u : (((2u << zhi) - 1u) & ~((1u << zlo) - 1u));
 }
 
 static inline int grid_blocks(long n, int threads) {

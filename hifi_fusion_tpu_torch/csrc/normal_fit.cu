@@ -107,32 +107,6 @@ __device__ void smallest_eigvec_sym(float a00, float a01, float a02,
 constexpr int kThreads = 128;
 constexpr int kMaxK = 15;
 
-// the bitmap bit of cell (cx + dx, cy + dy, cz) for column c = (dx + k) *
-// S + (dy + k) of the window, or -1 for a column past NC or outside the
-// grid
-__device__ __forceinline__ int column_base(const Geo& g, int cx, int cy,
-                                          int cz, int c, int S, int k,
-                                          int NC) {
-    const int nx = cx + c / S - k, ny = cy + c % S - k;
-    if (c >= NC || nx < 0 || nx >= g.dims[0] || ny < 0 || ny >= g.dims[1])
-        return -1;
-    return (nx * g.dims[1] + ny) * g.dims[2] + cz;
-}
-
-// the column's z window: bit t = dz + k holds cell (.., cz + dz), from
-// the two bitmap words at and after bit shpos = max(colbase - k, 0), the
-// words the JAX package reads; bit t lies at bit t - off of the 32 bits
-// from shpos, where off > 0 only near the bitmap's start (bitpos < 0)
-__device__ __forceinline__ uint32_t column_window(uint32_t w0, uint32_t w1,
-                                                  int colbase, int k,
-                                                  uint32_t zmask) {
-    const int shpos = max(colbase - k, 0);
-    const int off = shpos - (colbase - k);
-    const uint32_t b0 = (uint32_t)(shpos & 31);
-    const uint32_t win = (w0 >> b0) | (b0 > 0 ? w1 << (32 - b0) : 0u);
-    return (win << off) & zmask;
-}
-
 template <int KT>
 __global__ void __launch_bounds__(kThreads) normal_fit_kernel(
     const int* __restrict__ cand, int U, const int* __restrict__ key,
@@ -153,10 +127,7 @@ __global__ void __launch_bounds__(kThreads) normal_fit_kernel(
     const int cz = id % g.dims[2];
     const int cy = (id / g.dims[2]) % g.dims[1];
     const int cx = (id / g.dims[2]) / g.dims[1];
-    // z bits t whose cell cz + t - k lies inside the grid
-    const int zlo = max(0, k - cz), zhi = min(S - 1, g.dims[2] - 1 - cz + k);
-    const uint32_t zmask = zhi < zlo ? 0u
-        : (((2u << zhi) - 1u) & ~((1u << zlo) - 1u));
+    const uint32_t zmask = z_window_mask(g, cz, k);
 
     int total = 0;
     float m[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};

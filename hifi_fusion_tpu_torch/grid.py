@@ -101,6 +101,18 @@ def occupied_slots(grid: GridState) -> torch.Tensor:
     return grid.n_pts > 0
 
 
+def occupied_at(grid: GridState, slots: torch.Tensor) -> torch.Tensor:
+    """Occupancy at (clamped, in-range) slot indices."""
+    return grid.n_pts[slots.long()] > 0
+
+
+def count_at(grid: GridState, slots: torch.Tensor) -> torch.Tensor:
+    """The cylinder hit count (int32, rounded half to even as the JAX
+    package's ``jnp.round``) at (clamped, in-range) slot indices."""
+    return torch.round(grid.cyl_stats.view(-1, 5)[slots.long(), 4]).to(
+        torch.int32)
+
+
 _QUICK_FIELDS = ("occupied_voxels", "normals_found", "refine_candidates",
                  "buffered_points", "frames",
                  "overflow_probe", "overflow_buffer", "overflow_dependants",

@@ -41,7 +41,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
-            "tsdf_surface": 0, "planar_frontend": 0}
+            "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
+            "neighbor_count": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -73,6 +74,12 @@ _SIGNATURES = {
     # K, N, geo_f, geo_i, zmin, zmax, world, ids, rgb_out, stream
     "launch_planar_frontend": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P,
                                _P, _F, _F, _P, _P, _P, _P],
+    # points, rgb, mask, mask_is_bool, poses, K, N, S, step, half, geo_f,
+    # geo_i, zmin, zmax, skey, vals, stream
+    "launch_tsdf_lanes_planar": [_P, _P, _P, _I, _P, _I, _I, _I, _F, _F,
+                                 _P, _P, _F, _F, _P, _P, _P],
+    # slots, Q, key, capacity, occ_bits, W, geo_f, geo_i, k, out, stream
+    "launch_neighbor_count": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P],
     # cell, order, E, key, vstats, capacity, max_probes, geo_f, geo_i,
     # centroid, normal, tsdf, weight, rgb, stream
     "launch_tsdf_surface": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,

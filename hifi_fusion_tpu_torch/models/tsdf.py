@@ -1,13 +1,15 @@
 """TSDF-weighted fusion (BASELINE config 5), the port's second model family.
 
-The counterpart of ``hifi_fusion_tpu/models/tsdf.py`` for the depth wire.
-Each valid pixel's point places S samples along its camera ray at the
-centered offsets ``(s - (S-1)/2) * step`` inside +-truncation; a sample's
-cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf = -offset, the
-colour on the middle sample only).  One batch of K frames:
+The counterpart of ``hifi_fusion_tpu/models/tsdf.py`` for the depth wire
+and the planar wire.  Each valid point places S samples along its camera
+ray at the centered offsets ``(s - (S-1)/2) * step`` inside +-truncation;
+a sample's cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf =
+-offset, the colour on the middle sample only).  One batch of K frames:
 
-1. the sample lanes, kernel T2 (``tsdf_lanes``): the depth-wire inputs, the
-   pose transform, ray, distance, direction, the S sample positions, their
+1. the sample lanes, kernel T2 (``tsdf_lanes``) on the depth wire or T2p
+   (``tsdf_lanes_planar``) on the planar wire ((K,3,N) f32 camera points
+   and colour with count prefixes or a lane mask): the lane test, the pose
+   transform, ray, distance, direction, the S sample positions, their
    cell ids and the six values, lanes laid out ``k*S*N + s*N + n``;
 2. one stable sort of the cell ids and a gather of the six channels;
 3. the per-cell sums, kernel T1 (``ops/scatter.segment_sums``), in the
@@ -27,7 +29,7 @@ lookups, central or one-sided TSDF differences, the normal, the centroid
 XLA on the CPU contracts two expressions of the JAX source into fused
 multiply-adds inside jit: the sample position ``world + s*dirn`` is
 ``fma(s, dirn, world)`` and the squared ray length is ``fma(z, z, fma(y,
-y, x*x))``; the port computes both that way (``__fmaf_rn`` in T2,
+y, x*x))``; the port computes both that way (``__fmaf_rn`` in T2 and T2p,
 ``geometry.fma_f32`` in the plain version), so the lanes, and with the
 scan's association order the grid's sums, are bit-identical to the JAX
 package's.  XLA also turns the source's products with the 0/1 weight into
@@ -115,19 +117,18 @@ def _sample_step(config: TsdfConfig):
         np.float32((S - 1) / 2.0)
 
 
-# -- sample lanes (kernel T2) ----------------------------------------------
+# -- sample lanes (kernels T2 and T2p) -------------------------------------
 
-def tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config):
+def _sample_lanes_plain(pc, ok, rgb, poses, config):
+    """The sample map shared by both wires: (K,3,N) f32 camera points,
+    (K,N) bool lane test (without the z clip), (3,K,N) f32 colour and
+    (K,4,4) poses -> ``(skey, vals6)``, lane ``k*S*N + s*N + n``."""
     cfg = config.base
-    K, N = depth.shape
+    K, _, N = pc.shape
     S = config.n_samples
-    dev = depth.device
+    dev = pc.device
     f32 = torch.float32
-    d = _u16_to_i32(depth)
-    pc = d.to(f32)[:, None, :] * rays[None]                  # (K,3,N)
-    lane = torch.arange(N, device=dev, dtype=torch.int32)
-    ok = ((lane[None, :] < counts[:, None]) & (d > 0)
-          & (pc[:, 2] > _f32(cfg.z_clip[0], dev))
+    ok = (ok & (pc[:, 2] > _f32(cfg.z_clip[0], dev))
           & (pc[:, 2] < _f32(cfg.z_clip[1], dev)))            # (K,N)
     world = geometry.transform_points(pc, poses)              # (K,3,N)
     ray = world - poses[:, :3, 3, None]
@@ -146,10 +147,6 @@ def tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config):
              & geometry.valid_coords(coords, cfg))            # (K,S,N)
     skey = torch.where(valid, geometry.cell_id(coords, cfg),
                        torch.full_like(valid, BIG, dtype=torch.int32))
-    v = _u16_to_i32(rgb565)
-    rgb = torch.stack([((v >> 11) & 0x1F).to(f32) * 8.0,
-                       ((v >> 5) & 0x3F).to(f32) * 4.0,
-                       (v & 0x1F).to(f32) * 8.0], dim=0)      # (3,K,N)
     # XLA turns the JAX source's products with a 0/1 weight into selects,
     # so an invalid lane holds +0.0 in every channel
     zero = _f32(0.0, dev)
@@ -162,6 +159,21 @@ def tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config):
                          cm.to(f32)], dim=0)
     M = K * S * N
     return skey.reshape(M), vals6.reshape(6, M)
+
+
+def tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config):
+    K, N = depth.shape
+    dev = depth.device
+    f32 = torch.float32
+    d = _u16_to_i32(depth)
+    pc = d.to(f32)[:, None, :] * rays[None]                  # (K,3,N)
+    lane = torch.arange(N, device=dev, dtype=torch.int32)
+    ok = (lane[None, :] < counts[:, None]) & (d > 0)
+    v = _u16_to_i32(rgb565)
+    rgb = torch.stack([((v >> 11) & 0x1F).to(f32) * 8.0,
+                       ((v >> 5) & 0x3F).to(f32) * 4.0,
+                       (v & 0x1F).to(f32) * 8.0], dim=0)      # (3,K,N)
+    return _sample_lanes_plain(pc, ok, rgb, poses, config)
 
 
 def tsdf_lanes(depth: torch.Tensor, rgb565: torch.Tensor,
@@ -208,6 +220,64 @@ def tsdf_lanes(depth: torch.Tensor, rgb565: torch.Tensor,
     return skey, vals6
 
 
+def tsdf_lanes_planar_plain(points, rgb, mask, poses, config):
+    K, _, N = points.shape
+    if mask.dtype == torch.bool:
+        ok = mask
+    else:
+        lane = torch.arange(N, device=points.device, dtype=torch.int32)
+        ok = lane[None, :] < mask[:, None]
+    return _sample_lanes_plain(points, ok, rgb.transpose(0, 1), poses,
+                               config)
+
+
+def tsdf_lanes_planar(points: torch.Tensor, rgb: torch.Tensor,
+                      mask: torch.Tensor, poses: torch.Tensor,
+                      config: TsdfConfig):
+    """(K,3,N) f32 camera points and colour, a (K,) i32 count prefix or a
+    (K,N) bool lane mask, (K,4,4) f32 poses -> ``(skey (K*S*N,) i32 cell
+    id or INT32_MAX, vals6 (6, K*S*N) f32)``, lane ``k*S*N + s*N + n``:
+    the JAX package's ``_tsdf_lanes`` vmapped over K frames
+    (tsdf.py:86-132, 206-210).  Kernel T2p on CUDA tensors, its plain
+    version on CPU tensors; bit-identical."""
+    K, _, N = points.shape
+    dev = points.device
+    mshape = (K, N) if mask.dtype == torch.bool else (K,)
+    mtype = torch.bool if mask.dtype == torch.bool else torch.int32
+    for name, t, dtype, shape in (
+            ("points", points, torch.float32, (K, 3, N)),
+            ("rgb", rgb, torch.float32, (K, 3, N)),
+            ("mask", mask, mtype, mshape),
+            ("poses", poses, torch.float32, (K, 4, 4))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+    if dev.type == "cpu":
+        return tsdf_lanes_planar_plain(points, rgb, mask, poses, config)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    S = config.n_samples
+    M = K * S * N
+    skey = torch.empty((M,), dtype=torch.int32, device=dev)
+    vals6 = torch.empty((6, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return skey, vals6
+    step, half = _sample_step(config)
+    cfg = config.base
+    gf, gi = kernels.geometry_args(cfg)
+    lib = kernels.library()
+    kernels.check(lib.launch_tsdf_lanes_planar(
+        points.data_ptr(), rgb.data_ptr(), mask.data_ptr(),
+        int(mask.dtype == torch.bool), poses.data_ptr(), K, N, S,
+        float(step), float(half), kernels.ptr(gf), kernels.ptr(gi),
+        float(cfg.z_clip[0]), float(cfg.z_clip[1]), skey.data_ptr(),
+        vals6.data_ptr(), kernels.stream()), "tsdf_lanes_planar")
+    kernels.LAUNCHES["tsdf_lanes_planar"] += 1
+    return skey, vals6
+
+
 # -- reduce and integrate --------------------------------------------------
 
 def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
@@ -235,13 +305,9 @@ def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
     return grid
 
 
-def integrate_tsdf_batch_depth(grid: TsdfGrid, depth, rgb565, counts,
-                               poses, rays, config: TsdfConfig) -> TsdfGrid:
-    """K depth frames ((K,N) u16 depth and rgb565, (K,) i32 counts,
-    (K,4,4) poses) in one sort / scan / insert / scatter pass, in place;
-    U follows tsdf.py:211-213."""
-    K, N = depth.shape
-    skey, vals6 = tsdf_lanes(depth, rgb565, counts, poses, rays, config)
+def _reduce_batch(grid: TsdfGrid, skey, vals6, K: int,
+                  config: TsdfConfig) -> TsdfGrid:
+    """A K-frame batch's lanes into the grid; U follows tsdf.py:211-213."""
     U = min(config.batch_unique
             or K * 4 * config.base.max_unique_per_frame,
             skey.shape[0], tail(config))
@@ -250,16 +316,49 @@ def integrate_tsdf_batch_depth(grid: TsdfGrid, depth, rgb565, counts,
     return grid
 
 
-def integrate_tsdf_depth(grid: TsdfGrid, depth, rgb565, count, pose, rays,
-                         config: TsdfConfig) -> TsdfGrid:
-    """One depth frame ((N,) u16 depth and rgb565, 0-d i32 count, (4,4)
-    pose); U follows tsdf.py:188."""
-    skey, vals6 = tsdf_lanes(depth[None], rgb565[None], count.reshape(1),
-                             pose[None], rays, config)
+def _reduce_frame(grid: TsdfGrid, skey, vals6,
+                  config: TsdfConfig) -> TsdfGrid:
+    """One frame's lanes into the grid; U follows tsdf.py:188."""
     U = min(4 * config.base.max_unique_per_frame, skey.shape[0])
     tsdf_reduce(grid, skey, vals6, U, config)
     grid.frames += 1
     return grid
+
+
+def integrate_tsdf_batch_depth(grid: TsdfGrid, depth, rgb565, counts,
+                               poses, rays, config: TsdfConfig) -> TsdfGrid:
+    """K depth frames ((K,N) u16 depth and rgb565, (K,) i32 counts,
+    (K,4,4) poses) in one sort / scan / insert / scatter pass, in place."""
+    skey, vals6 = tsdf_lanes(depth, rgb565, counts, poses, rays, config)
+    return _reduce_batch(grid, skey, vals6, depth.shape[0], config)
+
+
+def integrate_tsdf_depth(grid: TsdfGrid, depth, rgb565, count, pose, rays,
+                         config: TsdfConfig) -> TsdfGrid:
+    """One depth frame ((N,) u16 depth and rgb565, 0-d i32 count, (4,4)
+    pose), in place."""
+    skey, vals6 = tsdf_lanes(depth[None], rgb565[None], count.reshape(1),
+                             pose[None], rays, config)
+    return _reduce_frame(grid, skey, vals6, config)
+
+
+def integrate_tsdf_batch(grid: TsdfGrid, points, rgb, mask, poses,
+                         config: TsdfConfig) -> TsdfGrid:
+    """K planar frames ((K,3,N) f32 camera points and colour, (K,N) bool
+    mask or (K,) i32 count prefixes, (K,4,4) poses) in one sort / scan /
+    insert / scatter pass, in place (tsdf.py:192-215)."""
+    skey, vals6 = tsdf_lanes_planar(points, rgb, mask, poses, config)
+    return _reduce_batch(grid, skey, vals6, poses.shape[0], config)
+
+
+def integrate_tsdf(grid: TsdfGrid, points, rgb, mask, pose,
+                   config: TsdfConfig) -> TsdfGrid:
+    """One planar frame ((3,N) f32 camera points and colour, (N,) bool
+    mask or 0-d i32 count, (4,4) pose), in place (tsdf.py:185-189)."""
+    mask = mask.reshape(1) if mask.dim() == 0 else mask[None]
+    skey, vals6 = tsdf_lanes_planar(points[None], rgb[None], mask,
+                                    pose[None], config)
+    return _reduce_frame(grid, skey, vals6, config)
 
 
 # -- surface extraction (kernel T3) ----------------------------------------
@@ -426,6 +525,17 @@ class TsdfPipeline:
         the layout ``put_state`` of either package takes."""
         from ..convert import tsdf_grid_to_numpy
         return tsdf_grid_to_numpy(grid, self.config)
+
+    def step(self, grid, points, rgb, mask, pose) -> TsdfGrid:
+        """One planar frame; ``mask`` is an (N,) bool lane mask or a 0-d
+        i32 count prefix."""
+        return integrate_tsdf(grid, points, rgb, mask, pose, self.config)
+
+    def step_batch(self, grid, points, rgb, mask, poses) -> TsdfGrid:
+        """K planar frames; ``mask`` is a (K,N) bool lane mask or (K,) i32
+        count prefixes."""
+        return integrate_tsdf_batch(grid, points, rgb, mask, poses,
+                                    self.config)
 
     def step_depth(self, grid, depth, rgb565, count, pose, rays) -> TsdfGrid:
         return integrate_tsdf_depth(grid, depth, rgb565, count, pose, rays,

@@ -17,7 +17,8 @@ contract:
   and counts it in ``pose_failures``.  The worker decodes it on the host
   (``decode.decode_frame``), cuts it to ``max_points`` (counted in
   ``frames_truncated`` / ``points_truncated``) and integrates it through
-  the planar frontend, kernel K5;
+  the planar frontend, kernel K5 (the TSDF family: its planar sample map,
+  kernel T2p);
 * ``run_source(source)`` pushes every ``(frame, pose)`` of a
   ``runtime/sources.Source`` and drains;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
@@ -46,8 +47,8 @@ TSDF-weighted family, ``models/tsdf.TsdfPipeline``; ``model_params`` feeds
 its ``TsdfConfig``: truncation, n_samples, min_weight, surface_band,
 batch_unique).  The TSDF family has no refine phase (its ``refine`` is a
 no-op); its export maps the surface onto the same PCD and CSV columns
-(tsdf.py:380-410).  It takes depth frames only: its ``push_frame`` raises
-(the planar TSDF step is ROADMAP A8b).
+(tsdf.py:380-410).  Both families take point clouds (``push_frame``; the
+TSDF family through its planar step, kernel T2p) and depth frames.
 
 One worker thread pops frames from a bounded drop-oldest queue.  With
 ``batch_fill_wait > 0`` (replay sources that outrun the device) it waits
@@ -55,10 +56,17 @@ up to that long for a full K-batch and integrates K frames at once; K is
 the largest value <= ``max_batch_frames`` that divides both
 ``refine_every`` and ``refine_first``, so a batch never spans a refine
 mark and batched and single-stepped sessions refine at the same frames.
-A batch holds frames of one kind (clouds, or depth frames of one width).
-With 0 (live sources) every frame is stepped alone.  Before a dispatch
-the worker waits for the previous one's device work (``device_wait``), so
-the host runs at most one step ahead of the card.
+With ``live_batching`` (a live source, after ``warm()``) a K-batch is
+popped only when the queue already holds one at a K-aligned frame
+number, with no wait: a backlog drains at the batched rate and a frame is
+never delayed.  A batch holds frames of one kind (clouds, or depth frames
+of one width).  With neither, every frame is stepped alone.  Before a
+dispatch the worker waits for the previous one's device work
+(``device_wait``), so the host runs at most one step ahead of the card.
+
+``n_devices``, ``route`` and ``route_betas`` are the JAX session's
+sharding arguments; a session on more than one device raises
+``NotImplementedError`` (the port's sharding is ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -103,7 +111,13 @@ class FusionSession:
                  output_dir: str = ".", queue_depth: int = 100,
                  final_refine: bool = True, batch_fill_wait: float = 0.0,
                  model: str = "fusion", model_params: Dict = None,
-                 pose_provider: Optional[Callable] = None):
+                 pose_provider: Optional[Callable] = None,
+                 live_batching: bool = False, n_devices: int = 1,
+                 route: bool = False, route_betas=None):
+        if n_devices > 1:
+            raise NotImplementedError(
+                f"n_devices={n_devices}: the port runs on one device; "
+                f"slab sharding and routing are ROADMAP A12")
         self.config = config.validate()
         self.model = model
         self.pose_provider = pose_provider
@@ -116,7 +130,8 @@ class FusionSession:
             raise ValueError(f"unknown model {model!r}")
         self.output_dir = output_dir
         self.final_refine = final_refine
-        self._kb = batch_frames(config) if batch_fill_wait > 0 else 1
+        self._kb = (batch_frames(config)
+                    if batch_fill_wait > 0 or live_batching else 1)
         self._batch_fill_wait = float(batch_fill_wait)
 
         self._queue = collections.deque(maxlen=queue_depth)
@@ -181,14 +196,13 @@ class FusionSession:
         native.library()
         N = self.config.max_points
         K = self._kb
-        poses = pipe.put(np.broadcast_to(np.eye(4, dtype=np.float32),
-                                         (K, 4, 4)))
+        poses = pipe.put(np.tile(np.eye(4, dtype=np.float32), (K, 1, 1)))
         pose = poses[0]
         g = pipe.init()
         if rays is not None and self._rays is None:
             self._rays = pipe.put(np.asarray(rays, np.float32))
         zc = torch.zeros((K,), dtype=torch.int32, device=dev)
-        if planar and hasattr(pipe, "step"):
+        if planar:
             zp = torch.zeros((K, 3, N), dtype=torch.float32, device=dev)
             g = pipe.step(g, zp[0], zp[0], zc[0], pose)
             if K > 1:
@@ -327,10 +341,6 @@ class FusionSession:
         gated or the pose lookup failed (the frame is dropped and counted
         in ``pose_failures``, as the reference drops it with a warning,
         FUSION.cpp:340-344)."""
-        if self.model != "fusion":
-            raise NotImplementedError(
-                f"push_frame: the {self.model!r} model takes depth frames "
-                f"only (push_depth_frame); its planar step is ROADMAP A8b")
         self._frames_in += 1
         if not self._started:
             return False
@@ -390,9 +400,12 @@ class FusionSession:
 
     def _pop_items(self):
         """One frame, or a K-batch of frames of one kind and shape when it
-        starts at a K-aligned frame."""
+        starts at a K-aligned frame.  With ``batch_fill_wait`` the worker
+        first waits that long for a K-batch to fill; with
+        ``live_batching`` alone it takes a batch only when one is already
+        queued."""
         kb = self._kb
-        if kb > 1:
+        if kb > 1 and self._batch_fill_wait > 0:
             deadline = time.monotonic() + self._batch_fill_wait
             while not self._shutdown and time.monotonic() < deadline:
                 with self._qlock:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times kernels K2 (at its three call shapes), K4, T1, K3, T3 (at two
-shapes) and K5, and the replays, of two or more checkouts of the PyTorch
-port on one CUDA card, in the order A, B, ..., ..., B, A.
+shapes), K5, T2p and B11 (at two shapes), and the replays, of two or more
+checkouts of the PyTorch port on one CUDA card, in the order A, B, ...,
+..., B, A.
 
     python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
 
@@ -26,6 +27,13 @@ JSON line.  The inputs are built through that checkout's own paths, with
   (the grid ``process()`` extracts at the end of the replay);
 * ``planar_frontend``: K5 on the session's planar wire of the first
   batch (``chip_smoke.planar_wires``), for a checkout that has it;
+* ``tsdf_lanes_planar``: T2p at TSDF config 5 on the planar wire of the
+  third batch's records (``chip_smoke.record_wire``), for a checkout that
+  has it;
+* ``neighbor_count/ror``, ``neighbor_count/occupied``: B11 at r=2 on the
+  fusion replay's final grid (``chip_smoke.fusion_final_grid``) over all
+  2^22 slots (-1 where unoccupied, the ROR call) and over the occupied
+  slots alone, for a checkout that has ``ops/queries``;
 * ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``: the 96-frame replays of
   phases 4, 6 and 7 (push to drain; ``process()`` follows, untimed; the
   planar one for a checkout with ``push_frame``).
@@ -55,7 +63,8 @@ HERE = Path(__file__).resolve().parent
 REPS = 10
 TIMED = ("hash_insert/integrate", "hash_insert/refine", "hash_insert/tsdf",
          "normal_fit", "segscan", "dep_stream", "tsdf_surface/batch2",
-         "tsdf_surface/replay", "planar_frontend")
+         "tsdf_surface/replay", "planar_frontend", "tsdf_lanes_planar",
+         "neighbor_count/ror", "neighbor_count/occupied")
 
 
 def smoke():
@@ -187,6 +196,30 @@ def child(root: str) -> dict:
             torch, lambda: integrate.planar_frontend(p, c, m, t, cfg, q),
             tuple, reps=REPS)
         del p, c, m, t
+    res["tsdf_lanes_planar"] = None
+    if hasattr(tsdf, "tsdf_lanes_planar"):
+        wire = cs.record_wire(torch, cs.cloud_frames(frames[16:24]),
+                              tcfg.base.max_points, dev)
+        res["tsdf_lanes_planar"] = cs.device_ms(
+            torch, lambda: tsdf.tsdf_lanes_planar(*wire, tcfg), tuple,
+            reps=REPS)
+        del wire
+    for shape in ("ror", "occupied"):
+        res[f"neighbor_count/{shape}"] = None
+    if importlib.util.find_spec("hifi_fusion_tpu_torch.ops.queries"):
+        from hifi_fusion_tpu_torch.ops import queries
+        grid = cs.fusion_final_grid(cfg, frames, rays, dev)
+        occ = grid.n_pts > 0
+        live = torch.nonzero(occ).squeeze(1).to(torch.int32)
+        every = torch.full((cfg.capacity,), -1, dtype=torch.int32,
+                           device=dev)
+        every[live.long()] = live
+        for shape, s in (("ror", every), ("occupied", live)):
+            res[f"neighbor_count/{shape}"] = cs.device_ms(
+                torch, queries.occupied_neighbor_counts,
+                lambda: (grid, s, cfg, 2), reps=REPS)
+        del grid, occ, live, every
+    torch.cuda.empty_cache()
     # the replays
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         dt = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/f")[1]

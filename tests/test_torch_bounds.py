@@ -121,3 +121,25 @@ def test_normal_fit_words_by_hand(ids, words):
     got = bounds.normal_fit_words(torch.tensor(ids, dtype=torch.int32),
                                   (4, 4, 64), 1, 32)
     assert got == len(words)
+
+
+@pytest.mark.parametrize("K,N,S,mask_bytes,want", [
+    # f32 points and colour, count prefixes: 24 B in a point, a pose and a
+    # count a frame, 28 B out a sample lane; the config-5 batch is the
+    # ~757 MB of lanes plus ~59 MB of planar input of csrc/tsdf_lanes.cu
+    (8, 307_200, 11, 0, 8 * 307_200 * (24 + 11 * 28) + 8 * 68),
+    # a bool mask: 1 B more a point, no count
+    (2, 100, 5, 1, 2 * 100 * (25 + 5 * 28) + 2 * 64)])
+def test_tsdf_lanes_planar_bytes(K, N, S, mask_bytes, want):
+    b = bounds.tsdf_lanes_planar(K, N, S, mask_bytes)
+    assert b["bytes"] == want and b["ops"] == K * N * (40 + 12 * S)
+    assert b["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("Q,live,words", [(1 << 22, 259_983, 2_000_000),
+                                          (10, 0, 0)])
+def test_neighbor_count_bytes(Q, live, words):
+    # slot in and count out a query, a key a live query, each window word
+    b = bounds.neighbor_count(Q, live, words)
+    assert b["bytes"] == 8 * Q + 4 * live + 4 * words and b["ops"] == 0
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)

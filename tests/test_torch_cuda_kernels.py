@@ -19,7 +19,8 @@ from hifi_fusion_tpu_torch.config import small_test_config
 from hifi_fusion_tpu_torch.grid import make_grid
 from hifi_fusion_tpu_torch.models import tsdf
 from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
-from hifi_fusion_tpu_torch.ops import hashing, integrate, refine, scatter
+from hifi_fusion_tpu_torch.ops import (hashing, integrate, queries, refine,
+                                      scatter)
 from hifi_fusion_tpu_torch.utils.synthetic import camera_rays, make_depth_sweep
 
 pytestmark = pytest.mark.cuda
@@ -534,3 +535,57 @@ def test_tsdf_surface_bit_exact_config5(dev):
     assert kernels.LAUNCHES["tsdf_surface"] == n0 + 1
     want = tsdf.tsdf_surface_plain(cell, slots, grid, tcfg)
     assert all(_same_words(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("mw", ["bool", "count"])
+def test_tsdf_lanes_planar_bit_exact(dev, K, mw):
+    """T2p against its plain version, bit for bit, on points whose world
+    images sit on cell faces, at the bbox and outside the z clip, with a
+    lane mask and with count prefixes."""
+    (pts, rgb, mask, poses), _ = _planar_inputs(dev, K, 4099, "f32", "f32",
+                                                mw, seed=K + len(mw))
+    n0 = kernels.LAUNCHES["tsdf_lanes_planar"]
+    got = tsdf.tsdf_lanes_planar(pts, rgb, mask, poses, TCFG)
+    assert kernels.LAUNCHES["tsdf_lanes_planar"] == n0 + 1
+    want = tsdf.tsdf_lanes_planar_plain(pts, rgb, mask, poses, TCFG)
+    assert all(_same_words(g, w) for g, w in zip(got, want))
+    n_valid = int((got[0] != tsdf.BIG).sum())
+    assert 0 < n_valid < got[0].numel()
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+def test_neighbor_count_faces(dev, k):
+    """B11 against the bitmap form in plain PyTorch on K4's face grid:
+    windows cut by every face of the grid and starting before bit 0, an
+    empty slot (key -1), slots of -1 and below, and a slot past the
+    table."""
+    cfg, cand, grid = _k4_inputs(dev, max(k, 1))
+    extra = torch.tensor([cand.numel(), -1, -7, cfg.capacity + 3],
+                         dtype=torch.int32, device=dev)
+    slots = torch.cat([cand, extra])
+    n0 = kernels.LAUNCHES["neighbor_count"]
+    got = queries.occupied_neighbor_counts(grid, slots, cfg, radius_cells=k)
+    assert kernels.LAUNCHES["neighbor_count"] == n0 + 1
+    want = queries.neighbor_counts_bitmap(grid, slots, cfg, k)
+    assert torch.equal(got, want)
+    # a window of one cell counts at most that cell
+    assert int(got.max()) > (1 if k else 0) and got[-3:-1].tolist() == [0, 0]
+
+
+def test_neighbor_count_matches_lookup(state):
+    """B11 against the plain version (the JAX package's lookup form) over
+    every slot of a fused grid, and the ROR mask the same on the card and
+    on the CPU."""
+    pipe, grid, rays, b = state
+    slots = torch.arange(CFG.capacity, dtype=torch.int32, device=pipe.device)
+    slots = torch.where(grid.n_pts > 0, slots, torch.full_like(slots, -1))
+    for r in (1, 2):
+        got = queries.occupied_neighbor_counts(grid, slots, CFG, r)
+        want = queries.neighbor_counts_plain(grid, slots, CFG, r)
+        assert torch.equal(got, want) and int(got.max()) > 1
+    keep = queries.radius_outlier_mask(grid, CFG).cpu()
+    cpu = dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).cpu()
+        for f in dataclasses.fields(grid)})
+    assert torch.equal(keep, queries.radius_outlier_mask(cpu, CFG))

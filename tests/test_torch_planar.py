@@ -348,10 +348,13 @@ def test_push_frame_pose_provider_and_gates():
         s.start()
         with pytest.raises(ValueError):
             s.push_frame(decode.make_cloud_frame(xyz))
+    # the TSDF family takes clouds through its planar step (A8b)
     with FusionSession(SCFG, "cpu", model="tsdf") as s:
         s.start()
-        with pytest.raises(NotImplementedError, match="A8b"):
-            s.push_frame(decode.make_cloud_frame(xyz), f.pose)
+        assert s.push_frame(decode.make_cloud_frame(xyz), f.pose)
+        assert s.drain(600)
+        m = s.metrics()
+    assert m["frames_integrated"] == 1 and m["dispatch_errors"] == 0
 
 
 def test_push_frame_truncates_and_counts():

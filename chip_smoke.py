@@ -9,7 +9,7 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA, no run;
-2. a fresh build of the ten CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
+2. a fresh build of the CUDA kernels from ``hifi_fusion_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) with the build seconds and ptxas'
    register / spill report, and of the two host libraries (``g++``: the
    native host runtime, ``runtime/native``, and the C++ oracle,
@@ -39,7 +39,11 @@ and prints no result line):
    call that computes its segment totals (``torch.segment_reduce``) and
    for B11 that of one ``avg_pool3d`` summing every window of the dense
    occupancy volume (its counts at the queried cells checked equal),
-   yardsticks the port never calls;
+   yardsticks the port never calls; B12 (owner-slab route and pack)
+   bit-exact against its plain pair on the third K=8 batch at phase 14's
+   shape (4 shards, depth wire and the session's planar wire) and at
+   phase 15's (the launch-file extent, 8 shards, depth wire), the host
+   read of its bucket totals inside the time;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -78,7 +82,8 @@ and prints no result line):
    reclamation as the config says), its extract held to phase 4's under
    ``checks.parity_gates`` and a unit-normal agreement gate
    (bench.py:709-775); prints the oracle's seconds and Mpts/s on this
-   host, single-threaded;
+   host, single-threaded, and how many count flips lie within reach of a
+   face point (``face_floors``);
 10. the TSDF planar replay: the config-5 ``FusionSession(model="tsdf")``
     takes phase 7's 96 records through ``push_frame`` (K=8), then
     ``process()``; checks overflow counters, that the surface holds phase
@@ -106,7 +111,31 @@ and prints no result line):
     ``push_depth_frame`` at 30 Hz; checks that no frame was dropped and
     that the extract holds phase 4's cells and counts; prints the lag from
     the last arrival to the end of ``drain()`` and how many dispatches
-    were batched.
+    were batched;
+14. the bench sweep through ``FusionSession(n_devices=4)``, its 4 shards
+    on the one card: routed (B12 and the world wire of K5, then K2-K4 a
+    shard), then replicated (K1-K4 a shard); each must have zero overflow
+    counters, report 4 devices and hold phase 4's extract under
+    ``checks.parity_gates``; prints the rate, stage timers, the budget
+    tier each routed dispatch chose, the largest bucket, the receive
+    lanes and the voxels of each shard's core;
+15. the launch-file extent (the bench config over (-0.80, 1.80, -1.5,
+    1.5, 0, 1.0) m at 1 mm: 7.8 G cells, which ``validate()`` refuses for
+    one grid) on 8 routed shards of the one card: the device memory by
+    stage (the grids, then the peak above them while a K=8 batch is
+    dispatched, refined and extracted); its own 96-frame sweep through
+    the session, ``process()``, zero overflow counters, the grids'
+    reckoned bytes beside the session's peak allocated (which must stay
+    under the grids and twice the largest stage's peak); the extract equal
+    to that of one grid with the same lower corner cut to the surface's
+    reach (1800 x 1700 x 500 cells: the same cells, counts and point
+    counts), and held to the C++ oracle (int64 cell keys): cell sets,
+    total hits and normals as in phase 9, count flips under 2% of the
+    voxels and, out of reach of every face point (a point the card's
+    reciprocal floor and the oracle's division put in different cells;
+    ``oracle_flips.py`` measures the cause), under 25 a frame; then the
+    sweep with its face points blanked, through the 8 shards again, under
+    ``checks.parity_gates`` whole.
 
 The last lines are a JSON object of per-kernel results (K2's entry holds
 its integrate shape's numbers and, under ``shapes``, every shape's), the
@@ -160,6 +189,8 @@ KERNELS = {
                           "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
     "neighbor_count": ("hifi_fusion_tpu_torch/csrc/neighbor_count.cu",
                        "hifi_fusion_tpu/ops/queries.py:41"),
+    "route_pack": ("hifi_fusion_tpu_torch/csrc/route_pack.cu",
+                   "hifi_fusion_tpu/parallel/routing.py:93"),
 }
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
@@ -168,6 +199,9 @@ TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
 TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "hash_insert",
                     "tsdf_surface")
 QUERY_PATH = ("neighbor_count",)
+# the routed sharded path: B12 routes, K5 takes the routed world points
+ROUTED_PATH = ("route_pack", "planar_frontend", "hash_insert", "dep_stream",
+               "normal_fit")
 CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
             "hash_insert", "dep_stream", "normal_fit", "segscan",
             "tsdf_surface")
@@ -195,6 +229,14 @@ BENCH_FIELDS = dict(
     refine_every=8,
     z_clip=(0.28, 0.6),
 )
+# the launch-file extent (the reference's launch bounding_box, config.py's
+# default bbox) at the bench config's 1 mm: 2600 x 3000 x 1000 cells, past
+# the int32 cell-id cap of one grid
+FLAGSHIP_BBOX = (-0.80, 1.80, -1.5, 1.5, 0.0, 1.0)
+# the launch-file extent cut to the surface's reach, with the same lower
+# corner (so the same cell coordinates, floors and centers): 1800 x 1700 x
+# 500 cells, which one grid holds
+FLAGSHIP_SUB_BBOX = (-0.80, 1.00, -1.5, 0.2, 0.0, 0.5)
 # the TSDF config 5 changes to it (tools/tsdf_bench.py:39-76)
 TSDF_FIELDS = dict(resolution=(0.0008, 0.0008, 0.0008), capacity_log2=24,
                    max_unique_per_frame=1 << 19, refine_every=0)
@@ -843,12 +885,14 @@ def segscan_yardstick(torch, scatter, tsdf, sid, svals, starts) -> float:
 
 
 def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
-           clouds=None, state_path=None, variants=(), **session_kw):
+           clouds=None, state_path=None, variants=(), probe=None,
+           **session_kw):
     """A session replay of the depth ``frames`` (or, given ``clouds``,
     ``push_frame`` of those ``(CloudFrame, pose)`` pairs), a ``save_state``
     to ``state_path`` when given, then ``process(variants=variants)``:
     ``(result, replay s, process s, metrics)``, the metrics read before
-    ``process()`` with the stage timers read after it."""
+    ``process()`` with the stage timers read after it, and under
+    ``probe`` what ``probe(session)`` returned before it."""
     from hifi_fusion_tpu_torch.runtime.session import FusionSession
     with FusionSession(cfg, device, output_dir=out_dir,
                        batch_fill_wait=fill_wait, **session_kw) as s:
@@ -865,6 +909,8 @@ def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
             raise AssertionError("session did not drain")
         dt = time.monotonic() - t0
         m = s.metrics()
+        if probe is not None:
+            m["probe"] = probe(s)
         if state_path is not None:
             t1 = time.monotonic()
             s.save_state(state_path)
@@ -1038,10 +1084,82 @@ def state_round_trip(torch, cfg, rays_np, state_path, depth_host, device,
         f"{json.dumps(timers)}")
 
 
-def oracle_sweep(cfg, frames, depth_host, card) -> None:
-    """Phase 9: the sweep's camera points through the C++ oracle at the
-    session's cadence, its extract held to ``depth_host`` under the
-    benchmark's structural gates and a unit-normal agreement gate."""
+def face_floors(f, cfg) -> tuple:
+    """The depth frame's face points: the pixels whose world point the
+    card and the C++ oracle floor to different cells, and both cells.
+    The card (as the JAX package's compiled programs) floors ``(p -
+    origin) * inv_res``, the folded f32 reciprocal; the oracle floors
+    ``(p - origin) / res``, so a point within an ulp of a cell face may
+    land in the neighbouring cell.  Only points both sides keep count
+    (camera-z clip, bbox, either cell in the grid).  Returns ``((N,) bool,
+    (M,3) card cells, (M,3) oracle cells)``."""
+    from hifi_fusion_tpu_torch.ops.geometry import inv_resolution
+    pc, T = f.points_f32, f.pose
+    p = np.stack([((T[r, 0] * pc[0] + T[r, 1] * pc[1]) + T[r, 2] * pc[2])
+                  + T[r, 3] for r in range(3)])
+    zmin, zmax = cfg.z_clip
+    face = (f.depth_q > 0) & (pc[2] > np.float32(zmin)) \
+        & (pc[2] < np.float32(zmax))
+    b = np.asarray(cfg.bbox, np.float64)
+    for a in range(3):
+        face &= (p[a] > b[2 * a]) & (p[a] < b[2 * a + 1])
+    d = p - np.asarray(cfg.origin, np.float32)[:, None]
+    card = np.floor(d * inv_resolution(cfg)[:, None]).astype(np.int64)
+    orc = np.floor(d / np.asarray(cfg.resolution, np.float32)[:, None]
+                   ).astype(np.int64)
+    dims = np.asarray(cfg.dims)[:, None]
+    inside = ((card >= 0) & (card < dims)) | ((orc >= 0) & (orc < dims))
+    face &= inside.all(axis=0) & (card != orc).any(axis=0)
+    return face, card[:, face].T, orc[:, face].T
+
+
+def face_cells(frames, cfg) -> np.ndarray:
+    """(2M, 3) int64: both cells of every face point of the sweep."""
+    out = [np.zeros((0, 3), np.int64)]
+    for f in frames:
+        out.extend(face_floors(f, cfg)[1:])
+    return np.concatenate(out)
+
+
+def blank_faces(frames, cfg) -> list:
+    """The depth frames with their face points' pixels at depth 0, so
+    that the card and the oracle floor every remaining point alike."""
+    out = []
+    for f in frames:
+        face = face_floors(f, cfg)[0]
+        dq = f.depth_q.copy()
+        dq[face] = 0
+        pf = f.points_f32.copy()
+        pf[:, face] = 0.0
+        out.append(dataclasses.replace(f, depth_q=dq, points_f32=pf))
+    return out
+
+
+def near_faces(cell, faces, cfg) -> np.ndarray:
+    """(n,) bool: which of the dense cell ids ``cell`` lie within
+    Chebyshev distance ``line_k + 1`` of a face point's cell, the reach of
+    a point's hits (its cell's dependant owners)."""
+    _, dy, dz = cfg.dims
+    c = np.asarray(cell, np.int64)
+    coords = np.stack([c // (dy * dz), (c // dz) % dy, c % dz], axis=1)
+    r = cfg.line_k + 1
+    span = np.arange(-r, r + 1)
+    box = np.stack(np.meshgrid(span, span, span, indexing="ij"),
+                   axis=-1).reshape(-1, 3)
+    near = np.unique(np.ravel_multi_index(
+        (faces[:, None, :] + box[None] + r).reshape(-1, 3).T,
+        (1 << 20,) * 3))
+    return np.isin(np.ravel_multi_index((coords + r).T, (1 << 20,) * 3),
+                   near)
+
+
+def oracle_sweep(cfg, frames, depth_host, card, phase=9) -> tuple:
+    """Phase 9 (and 15): the sweep's camera points through the C++ oracle
+    at the session's cadence, its extract held to ``depth_host`` under the
+    benchmark's structural gates and a unit-normal agreement gate;
+    returns ``(problems, info)``: the dense cell ids whose counts differ
+    (``flips``), how many of them lie near a face point (``near``), the
+    face points, the common voxels and the total hits of each side."""
     from hifi_fusion_tpu_torch import checks
     from hifi_fusion_tpu_torch.models.pipeline import refine_due
     from hifi_fusion_tpu_torch.oracle.native import NativeOracle
@@ -1069,19 +1187,24 @@ def oracle_sweep(cfg, frames, depth_host, card) -> None:
         problems.append(f"normal mismatch on {nfrac:.2%} of voxels")
     ca = depth_host["count"][ia].astype(np.int64)
     cb = orc["count"][ib]
+    faces = face_cells(frames, cfg)
+    flips = common[ca != cb]
+    info = {"flips": flips, "near": int(near_faces(flips, faces, cfg).sum()),
+            "face_points": faces.shape[0] // 2, "common": int(common.size),
+            "hits": (int(ca.sum()), int(cb.sum()))}
     px = len(frames) * frames[0].depth_q.size
     n_pts = sum(p.shape[0] for p in pts)
-    log(f"phase 9: C++ oracle (single-threaded, refine every {k}-frame "
+    log(f"phase {phase}: C++ oracle (single-threaded, refine every {k}-frame "
         f"batch holding a mark, reclaim {cfg.reclaim_buffer}): "
         f"{len(frames)} frames in {dt:.3f} s = {px / dt / 1e6:.3f} Mpts/s "
         f"of pixels, {n_pts / dt / 1e6:.3f} Mpts/s of points on this "
         f"host ({card}); oracle {orc['cell'].size} voxels, card "
         f"{depth_host['cell'].size}, common {common.size}, count "
-        f"mismatches {int((ca != cb).sum())}, total hits {int(ca.sum())} "
-        f"vs {int(cb.sum())}, normal mismatch share {nfrac:.6f}, "
+        f"mismatches {flips.size} ({info['near']} within reach of the "
+        f"{info['face_points']} face points), total hits {info['hits'][0]} vs "
+        f"{info['hits'][1]}, normal mismatch share {nfrac:.6f}, "
         f"problems {problems}")
-    if problems:
-        raise AssertionError(f"card vs C++ oracle: {problems}")
+    return problems, info
 
 
 def tsdf_card_vs_cpu(torch, scfg, srays, sframes) -> list:
@@ -1474,6 +1597,307 @@ def live_phase(torch, cfg, frames, rays_np, depth_host, dev, card) -> dict:
     return launches
 
 
+def flagship_config(FusionConfig):
+    """The bench config over the launch-file extent, unvalidated: one grid
+    cannot hold it (``validate()`` raises), 8 shards can."""
+    return FusionConfig(**{**BENCH_FIELDS, "bbox": FLAGSHIP_BBOX})
+
+
+def check_route_pack(torch, cfg, frames, flag_cfg, flag_frames, rays_np,
+                     dev) -> dict:
+    """Phase 3, B12: bit-exact against its plain pair (send buffer, budget,
+    drops, largest bucket) and timed with its bound on the third K=8 batch
+    at phase 14's shape (the bench config, 4 shards, the default tiers) on
+    the depth wire and the session's planar wire (f32 points and colour,
+    count prefixes), and at phase 15's (the launch-file extent, 8 shards)
+    on the depth wire.  The entry is the depth wire at phase 14's shape,
+    every shape's under ``shapes``."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.parallel import routing
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rays = put(rays_np)
+    shapes = {}
+    for name, c, fr, n, wire in (("depth_n4", cfg, frames, 4, "depth"),
+                                 ("planar_n4", cfg, frames, 4, "planar"),
+                                 ("depth_n8_flagship", flag_cfg,
+                                  flag_frames, 8, "depth")):
+        sf = ShardedFusion(c, [dev] * n, route=True)
+        args = (c, n, sf.slab_w, sf.halo, sf.send_lanes_tiers)
+        fs = fr[16:24]
+        K, N = len(fs), fs[0].depth_q.shape[0]
+        if wire == "depth":
+            b = (put(np.stack([f.depth_q for f in fs])),
+                 put(np.stack([f.rgb565 for f in fs])),
+                 put(np.full((K,), fs[0].count, np.int32)),
+                 put(np.stack([f.pose for f in fs])))
+
+            def kern(b=b, args=args):
+                return routing.route_pack_depth(*b, rays, *args)
+
+            def plain(b=b, args=args):
+                return routing.route_pack_plain(
+                    *routing.depth_lanes(*b[:3], rays), b[3], *args)
+            mask_bytes = 0
+        else:
+            p, col, cnt, t, _, _ = planar_wires(torch, fs, dev)[
+                "f32-f32-count"]
+            lanes = (torch.arange(N, device=dev)[None, :] < cnt[:, None])
+
+            def kern(p=p, col=col, cnt=cnt, t=t, args=args):
+                return routing.route_pack(p, col, cnt, t, *args)
+
+            def plain(p=p, col=col, lanes=lanes, t=t, args=args):
+                return routing.route_pack_plain(p, col, lanes, t, *args)
+            mask_bytes = 0
+        got, want = kern(), plain()
+        if not bits_equal(torch, got[0], want[0]) or got[1:] != want[1:]:
+            raise AssertionError(f"route_pack {name}: kernel (Bs, drops, "
+                                 f"max bucket) {got[1:]}, plain {want[1:]}, "
+                                 f"send bits equal "
+                                 f"{bits_equal(torch, got[0], want[0])}")
+        Bs, dropped, mx = got[1:]
+        n_sent = int((got[0][:, :, 6] > 0).sum())
+        del got, want
+        ms, pms = time_pair(torch, kern, plain, tuple)
+        shapes[name] = {**timed(0.0, ms, pms, bounds.route_pack(
+            K, N, n, Bs, wire, mask_bytes)), "n": n, "Bs": Bs,
+            "tiers": list(sf.send_lanes_tiers), "max_bucket": mx,
+            "dropped": dropped, "sent": n_sent}
+        log(f"phase 3: route_pack {name}: bit-exact, K {K} x {N} lanes, "
+            f"{n} shards, tiers {sf.send_lanes_tiers}, max bucket {mx} -> "
+            f"Bs {Bs}, {n_sent} lanes sent, {dropped} dropped; {ms:.4f} "
+            f"ms, plain {pms:.4f} ms")
+        torch.cuda.empty_cache()
+    return {**shapes["depth_n4"], "shapes": shapes}
+
+
+def shard_counts(cell, cfg, slab_w, n) -> list:
+    """Core voxels a shard of the global extract's int64 ``cell`` ids."""
+    _, dy, dz = cfg.dims
+    x = np.asarray(cell, np.int64) // (np.int64(dy) * np.int64(dz))
+    return np.bincount(np.minimum(x // slab_w, n - 1),
+                       minlength=n).tolist()
+
+
+def routing_probe(s) -> dict:
+    """The sharded session's routed budgets and loads."""
+    sf = s.pipeline
+    return {"tier_dispatches": {str(k): v for k, v in
+                                sorted(sf.tier_counts.items())},
+            "tiers": list(getattr(sf, "send_lanes_tiers", ())),
+            "max_bucket": sf.max_bucket,
+            "max_receive_lanes": sf.n * max(sf.tier_counts, default=0),
+            "slab_w": sf.slab_w, "halo": sf.halo}
+
+
+def sharded_phase(torch, cfg, frames, rays_np, depth_host, dev,
+                  card) -> list:
+    """Phase 14: the bench sweep through ``FusionSession(n_devices=4)`` on
+    the one card, routed (B12) then replicated (K1 per shard); raises
+    unless each run has zero overflow counters, reports 4 devices and
+    holds phase 4's extract under ``checks.parity_gates``.  Returns both
+    runs' launches."""
+    from hifi_fusion_tpu_torch import checks, kernels
+    out = []
+    for route, path in ((True, ROUTED_PATH), (False, FUSION_PATH)):
+        tag = "routed" if route else "replicated"
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            kernels.reset_launches()
+            r, dt, t_proc, m = replay(torch, cfg, frames, rays_np, dev,
+                                      tmp, n_devices=4, route=route,
+                                      probe=routing_probe)
+            launches = path_launches(path)
+            n = check_outputs(r)
+        gm = r["grid_metrics"]
+        problems = checks.parity_gates(r["host"], depth_host, len(frames))
+        if gm["devices"] != 4 or m["devices"] != 4:
+            problems.append(f"devices {gm['devices']}")
+        if problems:
+            raise AssertionError(f"phase 14 {tag}: {problems}")
+        pr = m["probe"]
+        mpts = len(frames) * WIDTH * HEIGHT / dt / 1e6
+        log(f"phase 14: {tag}, 4 shards on one card ({card}): "
+            f"{len(frames)} frames in {dt:.3f} s = {mpts:.3f} Mpts/s; "
+            f"process() {t_proc:.3f} s; {n} voxels, against phase 4's "
+            f"{same_voxels(r['host'], cfg, depth_host, cfg)}; per shard "
+            f"{shard_counts(r['host']['cell'], cfg, pr['slab_w'], 4)}; "
+            f"routing {json.dumps(pr)}; launches {launches}; "
+            f"{json.dumps(gm)}")
+        log(f"phase 14: {tag} stage timers {json.dumps(m['stage_timers'])}")
+        out.append(launches)
+    return out
+
+
+def grid_bytes(cfg) -> int:
+    """The device bytes of one grid of ``cfg`` (grid.make_grid)."""
+    C, B, D = cfg.capacity, cfg.buffer_capacity, cfg.max_dependants
+    # key, normal_found, normal, cyl_stats, viewpoint, rgb_sum, n_pts,
+    # dep, dep_count; buf_pts, buf_slot; the occupancy bitmap
+    return (C * (4 + 1 + 12 + 20 + 12 + 12 + 4 + 4 * D + 4) + B * 16
+            + cfg.n_occ_words * 4)
+
+
+def same_voxels(a, a_cfg, b, b_cfg) -> dict:
+    """Two extracts of grids with one lower corner compared by cell
+    coordinates: cells in one only, count and point-count mismatches,
+    and the largest centroid and normal differences."""
+    def coords(cell, cfg):
+        _, dy, dz = cfg.dims
+        c = np.asarray(cell, np.int64)
+        return c // (dy * dz), (c // dz) % dy, c % dz
+
+    ka, kb = (np.ravel_multi_index(coords(h["cell"], c), (1 << 20,) * 3)
+              for h, c in ((a, a_cfg), (b, b_cfg)))
+    common, ia, ib = np.intersect1d(ka, kb, return_indices=True)
+    return {"cells": int(ka.size + kb.size - 2 * common.size),
+            "count": int((a["count"][ia] != b["count"][ib]).sum()),
+            "n_pts": int((a["n_pts"][ia] != b["n_pts"][ib]).sum()),
+            "centroid": float(np.abs(a["centroid"][ia]
+                                     - b["centroid"][ib]).max(initial=0)),
+            "normal": float(np.abs(a["normal"][ia]
+                                   - b["normal"][ib]).max(initial=0))}
+
+
+def memory_stages(torch, flag_cfg, flag_frames, rays_np, dev) -> dict:
+    """Phase 15's device memory by stage, on 8 routed shards driven
+    directly: the bytes ``init()`` allocates, and the peak above them
+    while the first K=8 depth batch is dispatched (B12, the exchange and
+    each shard's integrate), while it is refined and while it is
+    extracted to the host."""
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+    sf = ShardedFusion(flag_cfg, [dev] * 8, route=True)
+    fs = flag_frames[:8]
+    dq, r565, cnt, poses = (sf.put(np.stack(a)) for a in (
+        [f.depth_q for f in fs], [f.rgb565 for f in fs],
+        [np.int32(f.count) for f in fs], [f.pose for f in fs]))
+    rays = sf.put_rays(rays_np)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    g = sf.init()
+    torch.cuda.synchronize()
+    out = {"grids": torch.cuda.memory_allocated() - base}
+    for name, fn in (
+            ("dispatch", lambda: sf.step_batch_depth(g, dq, r565, cnt,
+                                                     poses, rays)),
+            ("refine", lambda: sf.refine(g)),
+            ("extract", lambda: sf.extract_host(g))):
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = (torch.cuda.max_memory_allocated() - base
+                     - out["grids"])
+    out["tier"] = list(sf.tier_counts)
+    del g, sf
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_phase(torch, flag_cfg, flag_frames, rays_np, dev,
+                   card) -> dict:
+    """Phase 15: the launch-file extent, which ``validate()`` refuses for
+    one grid, on 8 routed shards of the one card: the sweep through the
+    session and ``process()`` with zero overflow counters, held exactly to
+    one grid of the same lower corner cut to the surface's reach (the same
+    cells, counts and point counts), and to the C++ oracle (int64 cell
+    keys).  Against the oracle the cell, total-hit and normal gates hold
+    as in phase 9, all count flips stay under 2% of the voxels, and those
+    out of reach of every face point (``face_floors``: the one arithmetic
+    difference between the card's floors and the oracle's) under 25 a
+    frame; the sweep with its face points blanked on both sides, again
+    through the 8 shards, must then pass ``checks.parity_gates`` whole.
+    Returns the run's launches."""
+    from hifi_fusion_tpu_torch import kernels
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+    try:
+        flag_cfg.validate()
+    except ValueError as e:
+        log(f"phase 15: one grid refused: {e}")
+    else:
+        raise AssertionError("the launch-file extent validated as one grid")
+    shard_cfg = ShardedFusion(flag_cfg, [dev] * 8, route=True).config
+    want = 8 * grid_bytes(shard_cfg)
+    mem = memory_stages(torch, flag_cfg, flag_frames, rays_np, dev)
+    log(f"phase 15: device memory by stage ({card}): grids "
+        f"{mem['grids'] / 1e9:.3f} GB allocated ({want / 1e9:.3f} GB "
+        f"reckoned); peak above them while dispatching 8 frames (tier "
+        f"{mem['tier']}) {mem['dispatch'] / 1e9:.3f} GB, refining "
+        f"{mem['refine'] / 1e9:.3f} GB, extracting "
+        f"{mem['extract'] / 1e9:.3f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        kernels.reset_launches()
+        r, dt, t_proc, m = replay(torch, flag_cfg, flag_frames, rays_np,
+                                  dev, tmp, n_devices=8, route=True,
+                                  probe=routing_probe)
+        launches = path_launches(ROUTED_PATH)
+        n = check_outputs(r)
+    peak = torch.cuda.max_memory_allocated() - base
+    pr = m["probe"]
+    gm = r["grid_metrics"]
+    if gm["devices"] != 8:
+        raise AssertionError(f"phase 15: {gm['devices']} devices")
+    # the session holds one set of grids and one stage's transients
+    most = want + 2 * max(mem["dispatch"], mem["refine"], mem["extract"])
+    if peak > most:
+        raise AssertionError(f"phase 15: the session's peak allocated "
+                             f"{peak} B, over {most} B")
+    mpts = len(flag_frames) * WIDTH * HEIGHT / dt / 1e6
+    log(f"phase 15: the launch-file extent {flag_cfg.global_x_cells} x "
+        f"{flag_cfg.dims[1]} x {flag_cfg.dims[2]} cells on 8 shards of "
+        f"{shard_cfg.n_cells} local cells ({card}): {len(flag_frames)} "
+        f"frames in {dt:.3f} s = {mpts:.3f} Mpts/s; process() "
+        f"{t_proc:.3f} s; {n} voxels, per shard "
+        f"{shard_counts(r['host']['cell'], flag_cfg, pr['slab_w'], 8)}; "
+        f"grids {want / 1e9:.3f} GB reckoned, the session's peak allocated "
+        f"{peak / 1e9:.3f} GB; routing {json.dumps(pr)}; launches "
+        f"{launches}; {json.dumps(gm)}")
+    log(f"phase 15: stage timers {json.dumps(m['stage_timers'])}")
+    sub = dataclasses.replace(flag_cfg, bbox=FLAGSHIP_SUB_BBOX).validate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rs, dts = replay(torch, sub, flag_frames, rays_np, dev, tmp)[:2]
+        check_outputs(rs)
+    diff = same_voxels(rs["host"], sub, r["host"], flag_cfg)
+    log(f"phase 15: one grid of the same lower corner, {sub.dims[0]} x "
+        f"{sub.dims[1]} x {sub.dims[2]} cells, in {dts:.3f} s: "
+        f"{rs['n_points']} voxels; against the 8 shards {diff}")
+    if diff["cells"] or diff["count"] or diff["n_pts"] \
+            or diff["centroid"] > 1e-5 or diff["normal"] > 1e-5:
+        raise AssertionError(f"phase 15: the shards differ from one grid "
+                             f"of the same corner: {diff}")
+    problems, info = oracle_sweep(flag_cfg, flag_frames, r["host"], card,
+                                  phase=15)
+    flips = info["flips"].size
+    far = flips - info["near"]
+    rest = [p for p in problems if not p.startswith("count mismatch")]
+    if rest or flips > 0.02 * info["common"] \
+            or far > max(25 * len(flag_frames), 64):
+        raise AssertionError(f"phase 15: shards vs C++ oracle: {problems}; "
+                             f"{far} count flips out of reach of a face "
+                             f"point")
+    blank = blank_faces(flag_frames, flag_cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rb = replay(torch, flag_cfg, blank, rays_np, dev, tmp, n_devices=8,
+                    route=True)[0]
+        check_outputs(rb)
+    problems_b, info_b = oracle_sweep(flag_cfg, blank, rb["host"], card,
+                                      phase="15, face points blanked")
+    if problems_b:
+        raise AssertionError(f"phase 15: shards vs C++ oracle with the face "
+                             f"points blanked: {problems_b}")
+    log(f"phase 15: gates held: cell sets, total hits, normals; count flips "
+        f"{flips} <= 2% of {info['common']} voxels, {info['near']} of them "
+        f"within reach of the {info['face_points']} face points and "
+        f"{far} <= {25 * len(flag_frames)} not; with the face points "
+        f"blanked {info_b['flips'].size} flips, parity_gates whole")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1535,6 +1959,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     kres["neighbor_count"], *b11 = check_neighbor_count(torch, cfg, frames,
                                                         rays, dev)
+    torch.cuda.empty_cache()
+    flag_cfg = flagship_config(FusionConfig)
+    t0 = time.monotonic()
+    flag_frames = make_depth_sweep(flag_cfg, FRAMES, width=WIDTH,
+                                   height=HEIGHT, seed=0, noise_sd=3e-4,
+                                   camera_height=0.4, srays=rays_np,
+                                   arc_frames=ARC_FRAMES)
+    log(f"phase 3: the launch-file extent's sweep of {FRAMES} frames made "
+        f"in {time.monotonic() - t0:.1f} s")
+    kres["route_pack"] = check_route_pack(torch, cfg, frames, flag_cfg,
+                                          flag_frames, rays_np, dev)
     for name, r in kres.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")
@@ -1627,7 +2062,9 @@ def main() -> int:
                      card)
 
     # -- phase 9 -------------------------------------------------------
-    oracle_sweep(cfg, frames, depth_host, card)
+    problems = oracle_sweep(cfg, frames, depth_host, card)[0]
+    if problems:
+        raise AssertionError(f"card vs C++ oracle: {problems}")
 
     # -- phases 10-13 ----------------------------------------------------
     runs = [fusion_launches, tsdf_launches, planar_launches]
@@ -1641,9 +2078,16 @@ def main() -> int:
     runs.append(live_phase(torch, cfg, frames, rays_np, depth_host, "cuda",
                            card))
 
-    # launches: the sum over the main-path runs (phases 4, 6, 7 and
-    # 10-13); K2's entry holds its integrate shape's numbers and every
-    # shape's
+    # -- phases 14-15 ----------------------------------------------------
+    torch.cuda.empty_cache()
+    runs.extend(sharded_phase(torch, cfg, frames, rays_np, depth_host,
+                              "cuda", card))
+    torch.cuda.empty_cache()
+    runs.append(flagship_phase(torch, flag_cfg, flag_frames, rays_np,
+                               "cuda", card))
+
+    # launches: the sum over the main-path runs (phases 4, 6, 7, 10-15);
+    # K2's entry holds its integrate shape's numbers and every shape's
     shapes = {k.split("/")[1]: kres.pop(k) for k in list(kres)
               if k.startswith("hash_insert/")}
     kres["hash_insert"] = {**shapes["integrate"], "shapes": shapes}

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of hifi_fusion_tpu for one NVIDIA H100.
 
 Mirrors the JAX package's layout (``config``, ``grid``, ``ops/*``,
-``models/*``, ``runtime/{session, decode, native, sources}``,
+``models/*``, ``parallel/{sharding, routing}``,
+``runtime/{session, decode, native, sources}``,
 ``io/{pcd, ply, downloads}``, ``oracle/native``, ``utils/{synthetic,
 profiling}``) and its public layouts: planar (3,N) points, flat
 slot-major grid fields.  Its host libraries (``runtime/native``,

@@ -13,9 +13,9 @@ TPU programs: ``max_unique_per_frame``, ``max_hit_voxels``,
 ``batch_hit_lanes`` (lane budgets), ``dep_width_tiers``,
 ``dep_resid_cells``, ``dep_resid_pairs`` (the stratified residual),
 ``refine_tiers``, ``replay_tiers`` (budget tiers), ``extract_cap``
-(the port sizes extraction from the live count), ``shard_x_cells``
-(sharding is not ported) and the ``scatter_tail`` property (the port's
-tensors have no scratch tail).  Their overflow counters therefore stay 0
+(the port sizes extraction from the live count) and the
+``scatter_tail`` property (the port's tensors have no scratch tail; only
+``convert.py`` reads it, to write the JAX layout).  Their overflow counters therefore stay 0
 in the port.
 """
 

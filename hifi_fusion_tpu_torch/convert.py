@@ -9,6 +9,11 @@ restored (at their initial values), the JAX package's own shapes.
 family's grid, the second restoring the tails.  With them a test starts
 both packages from one state, and a checkpoint (``save_state`` /
 ``load_state``) written by either package loads in the other.
+``sharded_grid_to_jax`` and ``sharded_grid_from_jax`` do the same for a
+slab-sharded grid (parallel/sharding.py) in the JAX package's sharded
+layout: each shard's fields, tails included, concatenated over the shards
+on the leading axis (``buf_pts`` on its lane axis), each scalar an (n,)
+array (JAX sharding.py:84-96, :176-179).
 """
 
 from __future__ import annotations
@@ -82,6 +87,39 @@ def grid_to_jax(grid: GridState, config: FusionConfig
         k = 1 if name == "occ_bits" else a.shape[0] // C
         out[name] = np.concatenate([a, np.full(k * T, fill, a.dtype)])
     return out
+
+
+def sharded_grid_to_jax(grids, config: FusionConfig
+                        ) -> Dict[str, np.ndarray]:
+    """Per-shard port ``GridState``s (shard ``config``) -> numpy fields in
+    the JAX package's sharded layout."""
+    parts = [grid_to_jax(g, config) for g in grids]
+    out = {}
+    for f in parts[0]:
+        vals = [p[f] for p in parts]
+        if f in SCALAR_FIELDS:
+            out[f] = np.stack([np.asarray(v).reshape(()) for v in vals])
+        else:
+            out[f] = np.concatenate(vals, axis=1 if f == "buf_pts" else 0)
+    return out
+
+
+def sharded_grid_from_jax(np_fields: Dict[str, np.ndarray],
+                          config: FusionConfig, devices) -> list:
+    """Fields in the JAX package's sharded layout -> one port
+    ``GridState`` a shard, shard ``j`` on ``devices[j]``."""
+    n = len(devices)
+    grids = []
+    for j, dev in enumerate(devices):
+        part = {}
+        for f, a in np_fields.items():
+            a = np.asarray(a)
+            if f in SCALAR_FIELDS:
+                part[f] = a.reshape(n)[j]
+            else:
+                part[f] = np.split(a, n, axis=1 if f == "buf_pts" else 0)[j]
+        grids.append(grid_from_jax(part, config, dev))
+    return grids
 
 
 def tsdf_grid_from_jax(np_fields: Dict[str, np.ndarray], config,

@@ -3,9 +3,13 @@
 // Every kernel takes the grid geometry as one by-value struct built on the
 // host from two small arrays (kernels/__init__.py geometry_args): origin,
 // resolution, bbox lower and upper corners, the f32 reciprocal resolution
-// (f32) and the grid dims (i32).  A cell coordinate is
-// floor((p - origin) * inv_res), as XLA computes the JAX package's
-// division by the constant resolution (ops/geometry.py cell_coords).
+// (f32), the grid dims and the local->global coordinate offset (i32).  A
+// cell coordinate is floor((p - origin) * inv_res), as XLA computes the
+// JAX package's division by the constant resolution (ops/geometry.py
+// cell_coords), minus the offset: a shard of a slab-sharded grid
+// (parallel/sharding.py) addresses its slab and halo in local
+// coordinates, while world arithmetic and cell centers stay global.  A
+// single grid has offset 0.
 // Floating-point arithmetic that feeds a floor or a strict comparison is
 // written with round-to-nearest intrinsics in the JAX package's operation
 // order, so no fused multiply-add can move a result by one rounding.
@@ -21,6 +25,7 @@ struct Geo {
     float hi[3];
     float inv_res[3];
     int dims[3];
+    int off[3];
 };
 
 static inline Geo make_geo(const float* f, const int* i) {
@@ -32,6 +37,7 @@ static inline Geo make_geo(const float* f, const int* i) {
         g.hi[a] = f[9 + a];
         g.inv_res[a] = f[12 + a];
         g.dims[a] = i[a];
+        g.off[a] = i[3 + a];
     }
     return g;
 }
@@ -46,9 +52,9 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
     return h;
 }
 
-// dense id -> coords -> center, as geometry.center_of_ids:
-// fma(res, coord + 0.5, origin), rounded once (the fused multiply-add XLA
-// makes of the JAX package's origin + res * (coord + 0.5))
+// dense id -> local coords -> global center, as geometry.center_of_ids:
+// fma(res, (coord + off) + 0.5, origin), rounded once (the fused
+// multiply-add XLA makes of the JAX package's origin + res * (c + 0.5))
 __device__ __forceinline__ void center_of_id(const Geo& g, int id,
                                              float* c) {
     int z = id % g.dims[2];
@@ -57,8 +63,50 @@ __device__ __forceinline__ void center_of_id(const Geo& g, int id,
     int x = xy / g.dims[1];
     int v[3] = {x, y, z};
     for (int a = 0; a < 3; ++a)
-        c[a] = __fmaf_rn(g.res[a], __fadd_rn((float)v[a], 0.5f),
+        c[a] = __fmaf_rn(g.res[a], __fadd_rn((float)(v[a] + g.off[a]), 0.5f),
                          g.origin[a]);
+}
+
+// The frontend arithmetic shared by kernels K1 (depth_frontend.cu), K5
+// (planar_frontend.cu) and B12 (route_pack.cu), so that routed and
+// replicated ingests agree bit for bit on which points survive.
+
+// SE(3) transform by the row-major (4,4) pose T in the JAX package's
+// order: ((R0 p0 + R1 p1) + R2 p2) + t, one rounding per operation
+__device__ __forceinline__ void pose_transform(const float* T,
+                                               const float* p, float* w) {
+    for (int a = 0; a < 3; ++a) {
+        const float* r = T + 4 * a;
+        w[a] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r[0], p[0]),
+                                             __fmul_rn(r[1], p[1])),
+                                   __fmul_rn(r[2], p[2])),
+                         r[3]);
+    }
+}
+
+// the local cell coords floor((w - origin) * inv_res) - off of a world
+// point; returns whether they lie inside [0, dims) and, with ``bbox``,
+// the point strictly inside the bbox (a pre-transformed routed point was
+// bbox-tested by its router)
+__device__ __forceinline__ bool cell_coords_valid(const Geo& g,
+                                                  const float* w, int* c,
+                                                  bool bbox) {
+    bool valid = true;
+    for (int a = 0; a < 3; ++a) {
+        if (bbox) valid = valid && w[a] > g.lo[a] && w[a] < g.hi[a];
+        const float f =
+            floorf(__fmul_rn(__fsub_rn(w[a], g.origin[a]), g.inv_res[a]));
+        c[a] = (int)f - g.off[a];
+        valid = valid && c[a] >= 0 && c[a] < g.dims[a];
+    }
+    return valid;
+}
+
+// rgb565 -> 8-bit channels (x8, x4, x8)
+__device__ __forceinline__ void expand_565(unsigned v, float* col) {
+    col[0] = (float)((v >> 11) & 0x1Fu) * 8.0f;
+    col[1] = (float)((v >> 5) & 0x3Fu) * 4.0f;
+    col[2] = (float)(v & 0x1Fu) * 8.0f;
 }
 
 // The occupancy window of kernels K4 (normal_fit.cu) and B11

@@ -8,8 +8,8 @@
 // unproject u16 depth against the resident ray table, count-prefix and
 // zero-depth validity, camera-z clip, SE(3) pose transform, strict bbox
 // test, floor((w - origin) * inv_res) (XLA's form of the division by the
-// constant resolution, common.cuh), coord validity, dense cell id, and
-// the rgb565 expansion (x8, x4, x8).
+// constant resolution, common.cuh) minus the shard offset, local coord
+// validity, dense cell id, and the rgb565 expansion (x8, x4, x8).
 //
 // Bound on the card: memory.  A lane reads 4 B of wire (depth, rgb565) and
 // 12 B of rays and writes 28 B (world xyz, id, rgb), about 44 B; a K=8
@@ -45,33 +45,22 @@ __global__ void depth_frontend_kernel(
     const float d = (float)dq;
     const float p[3] = {__fmul_rn(d, rays[n]), __fmul_rn(d, rays[N + n]),
                         __fmul_rn(d, rays[2L * N + n])};
-    const float* P = poses + 16L * k;
     float w[3];
-    for (int a = 0; a < 3; ++a) {
-        const float* r = P + 4 * a;
-        w[a] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r[0], p[0]),
-                                             __fmul_rn(r[1], p[1])),
-                                   __fmul_rn(r[2], p[2])),
-                         r[3]);
-    }
-    bool valid = n < counts[k] && dq > 0 && p[2] > zmin && p[2] < zmax;
+    pose_transform(poses + 16L * k, p, w);
     int c[3];
-    for (int a = 0; a < 3; ++a) {
-        valid = valid && w[a] > g.lo[a] && w[a] < g.hi[a];
-        const float f =
-            floorf(__fmul_rn(__fsub_rn(w[a], g.origin[a]), g.inv_res[a]));
-        c[a] = (int)f;
-        valid = valid && c[a] >= 0 && c[a] < g.dims[a];
-    }
+    const bool inside = cell_coords_valid(g, w, c, true);
+    const bool valid =
+        n < counts[k] && dq > 0 && p[2] > zmin && p[2] < zmax && inside;
     ids[lane] = valid ? (c[0] * g.dims[1] + c[1]) * g.dims[2] + c[2]
                       : INT_MAX;
     world[lane] = w[0];
     world[M + lane] = w[1];
     world[2 * M + lane] = w[2];
-    const unsigned v = rgb565[lane];
-    rgb[lane] = (float)((v >> 11) & 0x1Fu) * 8.0f;
-    rgb[M + lane] = (float)((v >> 5) & 0x3Fu) * 4.0f;
-    rgb[2 * M + lane] = (float)(v & 0x1Fu) * 8.0f;
+    float col[3];
+    expand_565(rgb565[lane], col);
+    rgb[lane] = col[0];
+    rgb[M + lane] = col[1];
+    rgb[2 * M + lane] = col[2];
 }
 
 extern "C" int launch_depth_frontend(

@@ -9,10 +9,14 @@
 // as q * scale + offset (or read f32 points), the lane mask or count
 // prefix, camera-z clip, SE(3) pose transform, strict bbox test,
 // floor((w - origin) * inv_res) (XLA's form of the division by the
-// constant resolution, common.cuh), coord validity, dense cell id
-// (INT_MAX where invalid) and the colour expansion (f32 channels, packed
-// 0xRRGGBB, or rgb565 x8 x4 x8).  Kernel K1 (depth_frontend.cu) does the
-// same job for the depth wire.
+// constant resolution, common.cuh) minus the shard offset, local coord
+// validity, dense cell id (INT_MAX where invalid) and the colour
+// expansion (f32 channels, packed 0xRRGGBB, or rgb565 x8 x4 x8).  Kernel
+// K1 (depth_frontend.cu) does the same job for the depth wire.  The
+// world wire (PTS_WORLD, f32 colour) takes the world points a router
+// sent to this shard (kernel B12, route_pack.cu): no transform, camera-z
+// clip or bbox test, only the local coord window, as the JAX package's
+// ``pre_transformed`` frontend (integrate.py:59-95, :259-270).
 //
 // Bound on the card: memory.  An f32 lane reads 12 B of points, 12 B of
 // f32 rgb and 1 B of mask, and writes 28 B (world xyz, id, rgb); a K=8
@@ -21,7 +25,7 @@
 //
 // Design: one thread per lane over the flat (K*N) lane space, frame-major,
 // so neighbouring threads touch neighbouring addresses in every planar
-// array; the point wire and the colour wire are template arguments (six
+// array; the point wire and the colour wire are template arguments (seven
 // instantiations), the mask form a uniform branch.  The pose (16 floats)
 // and the (2,3) quantization of a frame are read through the cache.  All
 // f32 math uses round-to-nearest intrinsics in the JAX operation order
@@ -34,7 +38,7 @@
 
 #include "common.cuh"
 
-enum { PTS_F32 = 0, PTS_U16 = 1 };
+enum { PTS_F32 = 0, PTS_U16 = 1, PTS_WORLD = 2 };
 enum { RGB_F32 = 0, RGB_U32 = 1, RGB_565 = 2 };
 
 template <int PW, int RW>
@@ -52,7 +56,7 @@ __global__ void planar_frontend_kernel(
     const long base = 3L * N * k + n;        // channel 0 of (K,3,N)
 
     float p[3];
-    if (PW == PTS_F32) {
+    if (PW != PTS_U16) {
         const float* P = (const float*)points;
         for (int a = 0; a < 3; ++a) p[a] = P[base + (long)a * N];
     } else {
@@ -64,25 +68,15 @@ __global__ void planar_frontend_kernel(
     }
     bool valid = mask_is_bool ? ((const unsigned char*)mask)[lane] != 0
                               : n < ((const int*)mask)[k];
-    valid = valid && p[2] > zmin && p[2] < zmax;
-
-    const float* T = poses + 16L * k;
     float w[3];
-    for (int a = 0; a < 3; ++a) {
-        const float* r = T + 4 * a;
-        w[a] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r[0], p[0]),
-                                             __fmul_rn(r[1], p[1])),
-                                   __fmul_rn(r[2], p[2])),
-                         r[3]);
+    if (PW == PTS_WORLD) {
+        for (int a = 0; a < 3; ++a) w[a] = p[a];
+    } else {
+        valid = valid && p[2] > zmin && p[2] < zmax;
+        pose_transform(poses + 16L * k, p, w);
     }
     int c[3];
-    for (int a = 0; a < 3; ++a) {
-        valid = valid && w[a] > g.lo[a] && w[a] < g.hi[a];
-        const float f =
-            floorf(__fmul_rn(__fsub_rn(w[a], g.origin[a]), g.inv_res[a]));
-        c[a] = (int)f;
-        valid = valid && c[a] >= 0 && c[a] < g.dims[a];
-    }
+    valid = cell_coords_valid(g, w, c, PW != PTS_WORLD) && valid;
     ids[lane] = valid ? (c[0] * g.dims[1] + c[1]) * g.dims[2] + c[2]
                       : INT_MAX;
     world[lane] = w[0];
@@ -99,10 +93,7 @@ __global__ void planar_frontend_kernel(
         col[1] = (float)((v >> 8) & 0xFFu);
         col[2] = (float)(v & 0xFFu);
     } else {
-        const unsigned v = ((const unsigned short*)rgb)[lane];
-        col[0] = (float)((v >> 11) & 0x1Fu) * 8.0f;
-        col[1] = (float)((v >> 5) & 0x3Fu) * 4.0f;
-        col[2] = (float)(v & 0x1Fu) * 8.0f;
+        expand_565(((const unsigned short*)rgb)[lane], col);
     }
     rgb_out[lane] = col[0];
     rgb_out[M + lane] = col[1];
@@ -146,6 +137,7 @@ extern "C" int launch_planar_frontend(
         case 3: HIFI_WIRES(PTS_U16, RGB_F32); break;
         case 4: HIFI_WIRES(PTS_U16, RGB_U32); break;
         case 5: HIFI_WIRES(PTS_U16, RGB_565); break;
+        case 6: HIFI_WIRES(PTS_WORLD, RGB_F32); break;
         default: return (int)cudaErrorInvalidValue;
     }
 #undef HIFI_WIRES

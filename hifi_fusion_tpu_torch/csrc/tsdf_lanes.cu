@@ -79,18 +79,6 @@ __device__ __forceinline__ void sample_lanes(
     }
 }
 
-// world = ((R0*x + R1*y) + R2*z) + t, one rounding per operation
-__device__ __forceinline__ void pose_transform(const float* P,
-                                               const float* p, float* w) {
-    for (int a = 0; a < 3; ++a) {
-        const float* r = P + 4 * a;
-        w[a] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r[0], p[0]),
-                                             __fmul_rn(r[1], p[1])),
-                                   __fmul_rn(r[2], p[2])),
-                         r[3]);
-    }
-}
-
 __global__ void tsdf_lanes_kernel(
     const unsigned short* __restrict__ depth,
     const unsigned short* __restrict__ rgb565,

@@ -42,7 +42,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
             "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
-            "neighbor_count": 0}
+            "neighbor_count": 0, "route_pack": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -84,6 +84,13 @@ _SIGNATURES = {
     # centroid, normal, tsdf, weight, rgb, stream
     "launch_tsdf_surface": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                             _P, _P, _P],
+    # wire, pts, rgb, mask, mask_is_bool, poses, rays, K, N, geo_f, geo_i,
+    # zmin, zmax, n, slab_w, halo, cnt, totals, stream
+    "launch_route_count": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _F,
+                           _F, _I, _I, _I, _P, _P, _P],
+    # the same through totals, then Bs, send, stream
+    "launch_route_pack": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _F,
+                          _F, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -186,17 +193,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
-def geometry_args(config):
+def geometry_args(config, offset=None):
     """Host arrays for the launchers' ``geo_f`` (origin, resolution, bbox
     lower and upper corner, the f32 reciprocal resolution: 15 f32) and
-    ``geo_i`` (dims, 3 i32) pointers.  The arrays must stay referenced
-    until the launch returns."""
+    ``geo_i`` (dims and the shard's local -> global coordinate offset,
+    zero for a single grid: 6 i32) pointers.  The arrays must stay
+    referenced until the launch returns."""
     from ..ops.geometry import inv_resolution
     b = config.bbox
     f = np.asarray(list(config.origin) + list(config.resolution)
                    + [b[0], b[2], b[4], b[1], b[3], b[5]], np.float32)
     f = np.concatenate([f, inv_resolution(config)])
-    i = np.asarray(config.dims, np.int32)
+    i = np.asarray(list(config.dims) + list(offset or (0, 0, 0)), np.int32)
     return f, i
 
 

@@ -4,7 +4,10 @@ The counterpart of ``hifi_fusion_tpu/models/pipeline.py`` (:40-285) for the
 depth wire and the planar wires.  A ``FusionPipeline`` holds the config
 and an explicit ``torch.device``; its grid lives on that device.  A CUDA
 device runs the kernels on the path (K1 or K5, K2-K4), a CPU device their
-plain versions; there is no fallback from one to the other.
+plain versions; there is no fallback from one to the other.  A shard of
+a slab-sharded grid (parallel/sharding.py) is a pipeline with the shard's
+config and its (3,) integer coordinate ``offset``, which every step,
+refine and extract threads through (JAX pipeline.py:66-87).
 """
 
 from __future__ import annotations
@@ -51,9 +54,10 @@ class FusionPipeline:
     """The config, the device, and the entry points over a ``GridState``.
     Every step updates the grid in place and returns it."""
 
-    def __init__(self, config: FusionConfig, device):
+    def __init__(self, config: FusionConfig, device, offset=None):
         self.config = config.validate()
         self.device = torch.device(device)
+        self.offset = tuple(int(o) for o in offset) if offset else None
 
     def init(self) -> GridState:
         return make_grid(self.config, self.device)
@@ -79,25 +83,29 @@ class FusionPipeline:
         return grid
 
     def step(self, grid: GridState, points, rgb, mask, pose,
-             quant=None) -> GridState:
+             quant=None, pre_transformed: bool = False,
+             extra_dropped: int = 0) -> GridState:
         """One planar frame (``ops/integrate.integrate``'s wires), then a
         refine when a mark falls on it (JAX ``fusion_step``)."""
-        grid = integrate(grid, points, rgb, mask, pose, self.config, quant)
+        grid = integrate(grid, points, rgb, mask, pose, self.config, quant,
+                         self.offset, pre_transformed, extra_dropped)
         return self._refine_if_due(grid)
 
     def step_batch(self, grid: GridState, points, rgb, mask, poses,
-                   quant=None) -> GridState:
+                   quant=None, pre_transformed: bool = False,
+                   extra_dropped: int = 0) -> GridState:
         """K planar frames; no refine (JAX ``integrate_batch``: the caller
         fires ``refine`` when ``refine_due`` says a mark fell in the
         batch)."""
         return integrate_batch(grid, points, rgb, mask, poses, self.config,
-                               quant)
+                               quant, self.offset, pre_transformed,
+                               extra_dropped)
 
     def step_depth(self, grid: GridState, depth, rgb565, count, pose,
                    rays) -> GridState:
         """One depth frame, then a refine when a mark falls on it."""
         grid = integrate_depth(grid, depth, rgb565, count, pose, rays,
-                               self.config)
+                               self.config, self.offset)
         return self._refine_if_due(grid)
 
     def step_batch_depth(self, grid: GridState, depth, rgb565, counts,
@@ -105,13 +113,13 @@ class FusionPipeline:
         """K depth frames; no refine (the caller fires ``refine`` when
         ``refine_due`` says a mark fell in the batch)."""
         return integrate_batch_depth(grid, depth, rgb565, counts, poses,
-                                     rays, self.config)
+                                     rays, self.config, self.offset)
 
     def refine(self, grid: GridState) -> GridState:
-        return refine_pass(grid, self.config)
+        return refine_pass(grid, self.config, self.offset)
 
-    def extract(self, grid: GridState) -> ExtractResult:
-        return extract(grid, self.config)
+    def extract(self, grid: GridState, x_range=None) -> ExtractResult:
+        return extract(grid, self.config, x_range, self.offset)
 
     def extract_host(self, grid: GridState) -> dict:
         return to_host(self.extract(grid))

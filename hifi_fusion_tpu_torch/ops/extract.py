@@ -10,7 +10,9 @@ x-major emission order) with finalized statistics:
 * mean_dist, sd_dist from Σd, Σd²; count; mean rgb; raw point count.
 
 The result is sized from the live number of voxels: no static cap and no
-re-extract path.
+re-extract path.  A shard of a slab-sharded grid emits only its core slab
+(``x_range``, local x) with global centers (``offset``); its ``cell`` ids
+stay local (parallel/sharding.py maps them to global int64 ids).
 """
 
 from __future__ import annotations
@@ -42,12 +44,20 @@ class ExtractResult:
 _PLANAR_FIELDS = ("centroid", "normal", "sd", "rgb")
 
 
-def extract(grid: GridState, config: FusionConfig) -> ExtractResult:
-    slots = torch.nonzero(occupied_slots(grid) & grid.normal_found
-                          ).squeeze(1)
+def extract(grid: GridState, config: FusionConfig, x_range=None,
+            offset=None) -> ExtractResult:
+    """The emitted voxels; ``x_range=(lo, hi)`` keeps those whose local x
+    cell lies in [lo, hi), ``offset`` makes the centers global (JAX
+    extract.py:66-101)."""
+    keep = occupied_slots(grid) & grid.normal_found
+    if x_range is not None:
+        _, dy, dz = config.dims
+        cx = grid.key // (dy * dz)
+        keep = keep & (cx >= x_range[0]) & (cx < x_range[1])
+    slots = torch.nonzero(keep).squeeze(1)
     cell, perm = torch.sort(grid.key[slots])
     order = slots[perm]
-    center = geometry.center_of_ids(cell, config)
+    center = geometry.center_of_ids(cell, config, offset)
     normal = grid.normal.view(-1, 3)[order].t()
     stats = grid.cyl_stats.view(-1, 5)[order].t()
     cnt = torch.round(stats[4]).to(torch.int32)

@@ -12,6 +12,10 @@ package's:
   the two forms, so the port multiplies as the JAX package's programs do;
 * ``cell_center``: ``origin + res * (coord + 0.5)`` rounded once, as the
   fused multiply-add XLA makes of it;
+* a shard of a slab-sharded grid (parallel/sharding.py) addresses cells
+  in local coordinates, its cell coords shifted by a (3,) integer offset;
+  world arithmetic and cell centers stay global (``shift``,
+  ``center_of_ids``' ``offset``);
 * ``transform_points``: ``((R00*x + R01*y) + R02*z) + t0``, one rounding
   per operation (no matmul, no fused multiply-add).
 """
@@ -114,9 +118,21 @@ def id_to_coords(ids: torch.Tensor, config: FusionConfig) -> torch.Tensor:
     return torch.stack([xy // dy, xy % dy, z], dim=0)
 
 
-def center_of_ids(ids: torch.Tensor, config: FusionConfig) -> torch.Tensor:
-    """Dense cell ids -> (3, ...) f32 cell centers."""
-    return cell_center(id_to_coords(ids, config), config)
+def shift(coords: torch.Tensor, offset, sign: int = 1) -> torch.Tensor:
+    """(3, ...) int coords plus ``sign`` times the (3,) int ``offset`` (a
+    tuple; ``None`` is zero)."""
+    if offset is None or not any(offset):
+        return coords
+    return coords + sign * _col(list(offset), coords.dim(), coords.dtype,
+                                coords.device)
+
+
+def center_of_ids(ids: torch.Tensor, config: FusionConfig,
+                  offset=None) -> torch.Tensor:
+    """Dense cell ids -> (3, ...) f32 GLOBAL cell centers.  ``offset``: a
+    shard's local -> global coordinate offset (parallel/sharding.py), a
+    (3,) int tuple; ``None`` for a single grid."""
+    return cell_center(shift(id_to_coords(ids, config), offset), config)
 
 
 def transform_points(points: torch.Tensor, pose: torch.Tensor

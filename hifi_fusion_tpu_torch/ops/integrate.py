@@ -56,31 +56,39 @@ def _rgb565(v: torch.Tensor) -> torch.Tensor:
                         (v & 0x1F).to(f32) * 8.0], dim=0)
 
 
-def _clip_transform_id(pc, valid_k, poses, config):
+def _clip_transform_id(pc, valid_k, poses, config, offset=None,
+                       pre_transformed=False):
     """The frontend's common tail on (K,3,N) camera points and a (K,N)
-    lane mask: camera-z clip, pose transform, strict bbox, cell coords and
-    their validity -> ``(world (3,K,N) f32, ids (K,N) i32)``, INT32_MAX
-    where invalid."""
+    lane mask: camera-z clip, pose transform, strict bbox, cell coords
+    shifted into the shard's local space by ``offset`` and their validity
+    -> ``(world (3,K,N) f32, ids (K,N) i32)``, INT32_MAX where invalid.
+    ``pre_transformed``: ``pc`` holds routed world points, which keep only
+    the local coord-window test (JAX integrate.py:59-95)."""
     f32 = torch.float32
-    zmin, zmax = (torch.tensor(z, dtype=f32, device=pc.device)
-                  for z in config.z_clip)
-    valid_k = valid_k & (pc[:, 2] > zmin) & (pc[:, 2] < zmax)
-    world = geometry.transform_points(pc, poses).transpose(0, 1)  # (3,K,N)
-    coords = geometry.cell_coords(world, config)
-    valid = (valid_k & geometry.valid_points(world, config)
-             & geometry.valid_coords(coords, config))
+    if pre_transformed:
+        world = pc.transpose(0, 1)                                # (3,K,N)
+    else:
+        zmin, zmax = (torch.tensor(z, dtype=f32, device=pc.device)
+                      for z in config.z_clip)
+        valid_k = valid_k & (pc[:, 2] > zmin) & (pc[:, 2] < zmax)
+        world = geometry.transform_points(pc, poses).transpose(0, 1)
+        valid_k = valid_k & geometry.valid_points(world, config)
+    coords = geometry.shift(geometry.cell_coords(world, config), offset, -1)
+    valid = valid_k & geometry.valid_coords(coords, config)
     ids = torch.where(valid, geometry.cell_id(coords, config),
                       torch.full_like(valid, INVALID_ID, dtype=torch.int32))
     return world, ids
 
 
-def depth_frontend_plain(depth, rgb565, counts, poses, rays, config):
+def depth_frontend_plain(depth, rgb565, counts, poses, rays, config,
+                         offset=None):
     K, N = depth.shape
     d = _u16_to_i32(depth)                                  # (K,N)
     pc = d.to(torch.float32)[:, None, :] * rays[None]       # (K,3,N)
     lane = torch.arange(N, device=depth.device, dtype=torch.int32)
     world, ids = _clip_transform_id(
-        pc, (lane[None, :] < counts[:, None]) & (d > 0), poses, config)
+        pc, (lane[None, :] < counts[:, None]) & (d > 0), poses, config,
+        offset)
     rgb = _rgb565(_u16_to_i32(rgb565))                      # (3,K,N)
     M = K * N
     return world.reshape(3, M), ids.reshape(M), rgb.reshape(3, M)
@@ -88,11 +96,13 @@ def depth_frontend_plain(depth, rgb565, counts, poses, rays, config):
 
 def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
                    counts: torch.Tensor, poses: torch.Tensor,
-                   rays: torch.Tensor, config: FusionConfig):
+                   rays: torch.Tensor, config: FusionConfig,
+                   offset=None):
     """(K,N) u16 depth, (K,N) u16 rgb565, (K,) i32 counts, (K,4,4) f32
     poses, (3,N) f32 rays -> ``(world (3,K*N) f32, ids (K*N,) i32 with
-    INT32_MAX where invalid, rgb (3,K*N) f32)``, lanes frame-major.
-    Kernel K1 on CUDA tensors, its plain version on CPU tensors;
+    INT32_MAX where invalid, rgb (3,K*N) f32)``, lanes frame-major; ids
+    local to a shard whose coordinate ``offset`` (a (3,) int tuple) is
+    given.  Kernel K1 on CUDA tensors, its plain version on CPU tensors;
     bit-identical."""
     K, N = depth.shape
     dev = depth.device
@@ -109,7 +119,7 @@ def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
             raise ValueError(f"{name}: must be contiguous on {dev}")
     if dev.type == "cpu":
         return depth_frontend_plain(depth, rgb565, counts, poses, rays,
-                                     config)
+                                     config, offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     M = K * N
@@ -118,7 +128,7 @@ def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
     rgb = torch.empty((3, M), dtype=torch.float32, device=dev)
     if M == 0:
         return world, ids, rgb
-    gf, gi = kernels.geometry_args(config)
+    gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     kernels.check(lib.launch_depth_frontend(
         depth.data_ptr(), rgb565.data_ptr(), counts.data_ptr(),
@@ -131,12 +141,15 @@ def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
 
 
 # point wires and colour wires of the planar frontend, as the kernel's
-# template arguments number them (csrc/planar_frontend.cu)
+# template arguments number them (csrc/planar_frontend.cu); routed world
+# points are wire 2
 POINT_WIRES = {torch.float32: 0, torch.uint16: 1}
+WORLD_WIRE = 2
 RGB_WIRES = {torch.float32: 0, torch.uint32: 1, torch.uint16: 2}
 
 
-def planar_frontend_plain(points, rgb, mask, poses, quant, config):
+def planar_frontend_plain(points, rgb, mask, poses, quant, config,
+                          offset=None, pre_transformed=False):
     K, _, N = points.shape
     f32 = torch.float32
     if points.dtype == torch.uint16:
@@ -147,7 +160,8 @@ def planar_frontend_plain(points, rgb, mask, poses, quant, config):
     if mask.dim() == 1:
         lane = torch.arange(N, device=points.device, dtype=torch.int32)
         mask = lane[None, :] < mask[:, None]
-    world, ids = _clip_transform_id(pc, mask, poses, config)
+    world, ids = _clip_transform_id(pc, mask, poses, config, offset,
+                                    pre_transformed)
     if rgb.dtype == torch.float32:
         rgb3 = rgb.transpose(0, 1)                          # (3,K,N)
     elif rgb.dtype == torch.uint16:
@@ -164,7 +178,8 @@ def planar_frontend_plain(points, rgb, mask, poses, quant, config):
 
 def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
                     mask: torch.Tensor, poses: torch.Tensor,
-                    config: FusionConfig, quant: torch.Tensor = None):
+                    config: FusionConfig, quant: torch.Tensor = None,
+                    offset=None, pre_transformed: bool = False):
     """The planar wires of K frames -> ``(world (3,K*N) f32, ids (K*N,)
     i32 with INT32_MAX where invalid, rgb (3,K*N) f32)``, lanes
     frame-major, as ``depth_frontend`` returns them.
@@ -177,8 +192,11 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
     * ``mask``: (K,N) bool lane validity, or (K,) i32 count prefixes;
     * ``poses``: (K,4,4) f32.
 
-    Kernel K5 on CUDA tensors, its plain version on CPU tensors;
-    bit-identical."""
+    ``offset`` (a (3,) int tuple) makes the ids local to a shard;
+    ``pre_transformed`` takes (K,3,N) f32 routed WORLD points with f32
+    colour: no transform, camera-z clip or bbox test, only the local
+    coord window (``parallel/routing.py``).  Kernel K5 on CUDA tensors,
+    its plain version on CPU tensors; bit-identical."""
     if points.dim() != 3 or points.shape[1] != 3:
         raise ValueError(f"points: expected (K,3,N), got "
                          f"{tuple(points.shape)}")
@@ -189,6 +207,8 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
     if rgb.dtype not in RGB_WIRES:
         raise ValueError(f"rgb: f32, u32 or u16, got {rgb.dtype}")
     q16 = points.dtype == torch.uint16
+    if pre_transformed and (q16 or rgb.dtype != torch.float32):
+        raise ValueError("pre-transformed points take f32 points and rgb")
     if q16 != (quant is not None):
         raise ValueError("u16 points need quant (2,3) or (K,2,3); f32 "
                          "points take none")
@@ -213,7 +233,7 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
             raise ValueError(f"{name}: must be contiguous on {dev}")
     if dev.type == "cpu":
         return planar_frontend_plain(points, rgb, mask, poses, quant,
-                                     config)
+                                     config, offset, pre_transformed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     M = K * N
@@ -222,10 +242,11 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
     rgb_out = torch.empty((3, M), dtype=torch.float32, device=dev)
     if M == 0:
         return world, ids, rgb_out
-    gf, gi = kernels.geometry_args(config)
+    gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     kernels.check(lib.launch_planar_frontend(
-        points.data_ptr(), POINT_WIRES[points.dtype],
+        points.data_ptr(),
+        WORLD_WIRE if pre_transformed else POINT_WIRES[points.dtype],
         quant.data_ptr() if q16 else None, rgb.data_ptr(),
         RGB_WIRES[rgb.dtype], mask.data_ptr(),
         int(mask.dtype == torch.bool), poses.data_ptr(), K, N,
@@ -255,7 +276,7 @@ def cylinder_add(cyl_stats: torch.Tensor, owner: torch.Tensor,
     cyl_stats.view(-1, 5).index_add_(0, owner[hit], vals)
 
 
-def dep_stream_plain(pts, slots, grid, config):
+def dep_stream_plain(pts, slots, grid, config, offset=None):
     D = config.max_dependants
     lane = torch.nonzero(slots >= 0).squeeze(1)
     s = slots[lane].long()
@@ -266,16 +287,17 @@ def dep_stream_plain(pts, slots, grid, config):
                            as_tuple=True)
     o = owners[pl, pj].long()
     cylinder_add(grid.cyl_stats, o, pts[:, lane[pl]],
-                 geometry.center_of_ids(grid.key[o], config),
+                 geometry.center_of_ids(grid.key[o], config, offset),
                  grid.normal.view(-1, 3)[o].t(), config.cylinder_radius)
 
 
 def dep_stream(pts: torch.Tensor, slots: torch.Tensor, grid: GridState,
-               config: FusionConfig) -> None:
+               config: FusionConfig, offset=None) -> None:
     """Stream (3,n) points, each with its cell's slot (-1 = skip), through
     the cylinders of the owners listed in the cell's dependants; hits add
-    [t, t², d, d², 1] to the owner's ``cyl_stats`` in place.  Kernel K3 on
-    CUDA tensors, its plain version on CPU tensors."""
+    [t, t², d, d², 1] to the owner's ``cyl_stats`` in place.  Owner
+    centers are global (``offset``: the shard's coordinate offset).
+    Kernel K3 on CUDA tensors, its plain version on CPU tensors."""
     n = slots.shape[0]
     dev = grid.device
     if pts.dtype != torch.float32 or tuple(pts.shape) != (3, n) \
@@ -286,13 +308,13 @@ def dep_stream(pts: torch.Tensor, slots: torch.Tensor, grid: GridState,
             or not (pts.is_contiguous() and slots.is_contiguous()):
         raise ValueError(f"dep_stream inputs must be contiguous on {dev}")
     if dev.type == "cpu":
-        dep_stream_plain(pts, slots, grid, config)
+        dep_stream_plain(pts, slots, grid, config, offset)
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if n == 0:
         return
-    gf, gi = kernels.geometry_args(config)
+    gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     kernels.check(lib.launch_dep_stream(
         pts.data_ptr(), n, slots.data_ptr(), grid.key.data_ptr(),
@@ -311,13 +333,16 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 def integrate_lanes(grid: GridState, world: torch.Tensor,
                     ids: torch.Tensor, rgb: torch.Tensor,
                     poses: torch.Tensor, K: int, N: int,
-                    config: FusionConfig) -> GridState:
+                    config: FusionConfig, offset=None,
+                    extra_dropped: int = 0) -> GridState:
     """Stages 2-6 of a K-frame batch on a frontend's frame-major lanes
     ((3,K*N) f32 world points, (K*N,) i32 ids with INT32_MAX where
     invalid, (3,K*N) f32 rgb) and the batch's (K,4,4) poses, into ``grid``
     in place; returns ``grid``.  No refine: the caller fires
     ``refine_pass`` when ``refine_due`` says a mark fell inside the
-    batch."""
+    batch.  ``offset``: the shard's coordinate offset; ``extra_dropped``:
+    points a router dropped for this batch, added to ``overflow_active``
+    (JAX integrate.py:322-325)."""
     M = K * N
     C = config.capacity
     B = config.buffer_capacity
@@ -327,7 +352,7 @@ def integrate_lanes(grid: GridState, world: torch.Tensor,
     n_act = int((sid != INVALID_ID).sum())
     NA = min(K * config.max_active_points, M)    # active-lane budget
     n_sv = min(n_act, NA)
-    grid.overflow_active += max(n_act - NA, 0)
+    grid.overflow_active += max(n_act - NA, 0) + extra_dropped
     sid, order = sid[:n_sv], order[:n_sv]
     pts = world[:, order]
     fid = order // N
@@ -369,7 +394,7 @@ def integrate_lanes(grid: GridState, world: torch.Tensor,
     else:
         grid.overflow_buf += n_want
 
-    dep_stream(pts, slot_pt, grid, config)
+    dep_stream(pts, slot_pt, grid, config, offset)
     grid.frames += K
     return grid
 
@@ -377,44 +402,57 @@ def integrate_lanes(grid: GridState, world: torch.Tensor,
 def integrate_batch_depth(grid: GridState, depth: torch.Tensor,
                           rgb565: torch.Tensor, counts: torch.Tensor,
                           poses: torch.Tensor, rays: torch.Tensor,
-                          config: FusionConfig) -> GridState:
+                          config: FusionConfig, offset=None) -> GridState:
     """Integrate K depth frames ((K,N) u16 depth and rgb565, (K,) i32
-    counts, (K,4,4) f32 poses) into ``grid`` in place; returns ``grid``."""
+    counts, (K,4,4) f32 poses) into ``grid`` in place; returns ``grid``.
+    ``offset``: the shard's coordinate offset.  A routed depth frame is
+    unprojected before routing and arrives as pre-transformed planar
+    world points (``integrate_batch``)."""
     K, N = depth.shape
     world, ids, rgb = depth_frontend(depth, rgb565, counts, poses, rays,
-                                     config)
-    return integrate_lanes(grid, world, ids, rgb, poses, K, N, config)
+                                     config, offset)
+    return integrate_lanes(grid, world, ids, rgb, poses, K, N, config,
+                           offset)
 
 
 def integrate_batch(grid: GridState, points: torch.Tensor,
                     rgb: torch.Tensor, mask: torch.Tensor,
                     poses: torch.Tensor, config: FusionConfig,
-                    quant: torch.Tensor = None) -> GridState:
+                    quant: torch.Tensor = None, offset=None,
+                    pre_transformed: bool = False,
+                    extra_dropped: int = 0) -> GridState:
     """Integrate K planar frames (the wires of ``planar_frontend``) into
     ``grid`` in place; returns ``grid``.  The counterpart of the JAX
-    package's ``models/pipeline.integrate_batch``."""
+    package's ``models/pipeline.integrate_batch``; ``offset``,
+    ``pre_transformed`` and ``extra_dropped`` as in its
+    ``integrate_frame_impl`` (integrate.py:59-95, :259-281, :322-325)."""
     K, _, N = points.shape
     world, ids, rgb3 = planar_frontend(points, rgb, mask, poses, config,
-                                       quant)
-    return integrate_lanes(grid, world, ids, rgb3, poses, K, N, config)
+                                       quant, offset, pre_transformed)
+    return integrate_lanes(grid, world, ids, rgb3, poses, K, N, config,
+                           offset, extra_dropped)
 
 
 def integrate(grid: GridState, points: torch.Tensor, rgb: torch.Tensor,
               mask: torch.Tensor, pose: torch.Tensor, config: FusionConfig,
-              quant: torch.Tensor = None) -> GridState:
+              quant: torch.Tensor = None, offset=None,
+              pre_transformed: bool = False,
+              extra_dropped: int = 0) -> GridState:
     """One planar frame ((3,N) f32 or u16 points, (3,N) f32 or (N,) u32 /
     u16 rgb, (N,) bool mask or 0-d i32 count, (4,4) pose, (2,3) quant for
     u16 points): the K=1 batch."""
     mask = mask.reshape(1) if mask.dim() == 0 else mask[None]
     return integrate_batch(grid, points[None], rgb[None], mask, pose[None],
-                           config, quant)
+                           config, quant, offset, pre_transformed,
+                           extra_dropped)
 
 
 def integrate_depth(grid: GridState, depth: torch.Tensor,
                     rgb565: torch.Tensor, count: torch.Tensor,
                     pose: torch.Tensor, rays: torch.Tensor,
-                    config: FusionConfig) -> GridState:
+                    config: FusionConfig, offset=None) -> GridState:
     """One depth frame ((N,) u16 depth and rgb565, 0-d i32 count, (4,4)
     pose): the K=1 batch."""
     return integrate_batch_depth(grid, depth[None], rgb565[None],
-                                 count.reshape(1), pose[None], rays, config)
+                                 count.reshape(1), pose[None], rays, config,
+                                 offset)

@@ -48,7 +48,7 @@ def _neighbor_offsets(config: FusionConfig) -> np.ndarray:
     return grid.reshape(-1, 3).T.copy()
 
 
-def normal_fit_plain(cand, grid, config):
+def normal_fit_plain(cand, grid, config, offset=None):
     dev = cand.device
     f32 = torch.float32
     coords = geometry.id_to_coords(grid.key[cand.long()], config)   # (3,U)
@@ -80,7 +80,7 @@ def normal_fit_plain(cand, grid, config):
         m[3] / tot - mx * mx, m[4] / tot - mx * my, m[5] / tot - mx * mz,
         m[6] / tot - my * my, m[7] / tot - my * mz, m[8] / tot - mz * mz)
 
-    center = geometry.cell_center(coords, config)
+    center = geometry.cell_center(geometry.shift(coords, offset), config)
     vp = grid.viewpoint.view(-1, 3)[cand.long()].t()
     dv = vp - center
     flip = ((dv[0] * nvec[0] + dv[1] * nvec[1]) + dv[2] * nvec[2]) < 0.0
@@ -91,17 +91,20 @@ def normal_fit_plain(cand, grid, config):
     return nvec.contiguous(), gated
 
 
-def normal_fit(cand: torch.Tensor, grid: GridState, config: FusionConfig):
+def normal_fit(cand: torch.Tensor, grid: GridState, config: FusionConfig,
+               offset=None):
     """Fit, gate and orient the normals of the (U,) i32 candidate slots.
     Gated candidates get ``normal`` and ``normal_found`` in place; returns
-    ``(nvec (3,U) f32, gated (U,) bool)`` for every candidate.  Kernel K4
-    on CUDA tensors, its plain version on CPU tensors."""
+    ``(nvec (3,U) f32, gated (U,) bool)`` for every candidate.  The window
+    is local, the orientation uses the global center (``offset``: the
+    shard's coordinate offset).  Kernel K4 on CUDA tensors, its plain
+    version on CPU tensors."""
     dev = grid.device
     if cand.dtype != torch.int32 or cand.dim() != 1 \
             or cand.device != dev or not cand.is_contiguous():
         raise ValueError(f"candidates must be contiguous (U,) int32 on {dev}")
     if dev.type == "cpu":
-        return normal_fit_plain(cand, grid, config)
+        return normal_fit_plain(cand, grid, config, offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     U = cand.numel()
@@ -109,7 +112,7 @@ def normal_fit(cand: torch.Tensor, grid: GridState, config: FusionConfig):
     gated = torch.empty((U,), dtype=torch.bool, device=dev)
     if U == 0:
         return nvec, gated
-    gf, gi = kernels.geometry_args(config)
+    gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     kernels.check(lib.launch_normal_fit(
         cand.data_ptr(), U, grid.key.data_ptr(), grid.occ_bits.data_ptr(),
@@ -121,8 +124,11 @@ def normal_fit(cand: torch.Tensor, grid: GridState, config: FusionConfig):
     return nvec, gated
 
 
-def refine_pass(grid: GridState, config: FusionConfig) -> GridState:
-    """One refinement pass over ``grid`` in place; returns ``grid``."""
+def refine_pass(grid: GridState, config: FusionConfig,
+                offset=None) -> GridState:
+    """One refinement pass over ``grid`` in place; returns ``grid``.
+    ``offset``: a shard's coordinate offset; centers and line points are
+    global, line cells local (JAX refine.py:172-176, :269-270)."""
     dev = grid.device
     C = config.capacity
     D = config.max_dependants
@@ -139,15 +145,16 @@ def refine_pass(grid: GridState, config: FusionConfig) -> GridState:
     cand = cand[:U].to(i32)
 
     # --- 2. normal fit (K4) -----------------------------------------------
-    nvec, gated = normal_fit(cand, grid, config)
-    center = geometry.center_of_ids(grid.key[cand.long()], config)  # (3,U)
+    nvec, gated = normal_fit(cand, grid, config, offset)
+    center = geometry.center_of_ids(grid.key[cand.long()], config,
+                                    offset)                         # (3,U)
 
     # --- 3. line cells ----------------------------------------------------
     res0 = torch.tensor(config.resolution[0], dtype=f32, device=dev)
     steps = torch.arange(-Kl, Kl + 1, dtype=f32, device=dev)
     line = (center[:, None, :]
             + steps[None, :, None] * res0 * nvec[:, None, :])       # (3,L,U)
-    lc = geometry.cell_coords(line, config)
+    lc = geometry.shift(geometry.cell_coords(line, config), offset, -1)
     lp_valid = (geometry.valid_points(line, config) & gated[None, :]
                 & geometry.valid_coords(lc, config)).reshape(-1)    # (L*U,)
     lids = geometry.cell_id(lc, config).reshape(-1)

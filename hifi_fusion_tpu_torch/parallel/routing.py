@@ -1,0 +1,301 @@
+"""Owner-slab point routing: the routed ingest of slab-sharded fusion.
+
+The counterpart of ``hifi_fusion_tpu/parallel/routing.py``.  Each source
+shard ``s`` of an ``n``-shard grid takes the strided lanes ``s::n`` of a
+frame and, per lane:
+
+1. runs the frontend with the GLOBAL geometry: transform, camera-z clip,
+   bbox and coord validity, in the single-grid frontend's arithmetic, so
+   routed and replicated ingests agree bit for bit on which points
+   survive;
+2. finds its owner slab with ``n - 1`` boundary compares and at most one
+   halo secondary target (``slab_w >= 2 * halo`` keeps it to one);
+3. ranks it within its (source, target) bucket: primaries in lane order,
+   then secondaries in lane order, the order of the JAX package's stable
+   sort of ``concatenate([primary, secondary])`` by target;
+4. packs it, when its rank is under the send budget ``Bs``, into the
+   dense (7, n * Bs) send buffer ``[wx wy wz r g b present]`` at column
+   ``target * Bs + rank``; the rest is zero and ranks past ``Bs`` are
+   dropped and counted.
+
+The budget is chosen per dispatch from an ascending tier ladder: the first
+tier that covers the largest bucket over every source and frame, else the
+top tier (JAX sharding.py:302-308).  Destination ``j`` receives bucket
+``j`` of every source, source-major: ``n * Bs`` lanes of world points
+that its integrate takes as pre-transformed, keeping only its local
+coord window.
+
+Kernel B12 (``csrc/route_pack.cu``) does stages 1-4 for a whole K-frame
+batch of the depth wire or the planar f32 wire (``route_pack``);
+``route_sort_plain`` and ``pack_send_plain`` are the JAX package's two
+stages in plain PyTorch, which ``route_pack_plain`` applies frame by frame
+and source by source.  A CPU tensor runs the plain pair, a CUDA tensor
+the kernel.
+
+The exchange (``exchange_batch``) is one code path for every placement:
+destination ``j`` gathers its bucket of every source with
+``.to(device_j, non_blocking=True)``, a no-op when the shards share a
+device and a peer copy between cards.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..config import FusionConfig
+from ..ops import geometry
+from ..ops.integrate import _rgb565, _u16_to_i32
+
+BIG = torch.iinfo(torch.int32).max   # target of an invalid lane
+MAX_SHARDS = 16                      # B12's (source, target) key space
+
+
+def check_slabs(slab_w: int, halo: int) -> None:
+    """A point has at most one halo secondary only if ``slab_w >= 2 *
+    halo`` (JAX routing.py:102-105)."""
+    if slab_w < 2 * halo:
+        raise ValueError(
+            f"routed sharding needs slab_w ({slab_w}) >= 2*halo "
+            f"({2 * halo}); use fewer devices or the replicate path")
+
+
+def owner_of_x(x: torch.Tensor, n_dev: int, slab_w: int) -> torch.Tensor:
+    """(...,) global x cell coord -> owning shard, by ``n_dev - 1``
+    boundary compares (exact; no integer division)."""
+    owner = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for j in range(1, n_dev):
+        owner += (x >= j * slab_w).to(torch.int32)
+    return owner
+
+
+def tier_index(tiers: Sequence[int], max_bucket: int) -> int:
+    """The first tier whose budget covers ``max_bucket``; the top tier
+    takes (and counts) anything beyond."""
+    return sum(int(max_bucket > bs) for bs in tiers[:-1])
+
+
+class RoutedSort(NamedTuple):
+    """One source block's routing state after the target sort (lane space
+    L = 2 * block size: primary and halo-secondary lanes)."""
+    tgt: torch.Tensor         # (L,) i32 sorted target shard, BIG = invalid
+    payload: torch.Tensor     # (6,L) f32 [wx wy wz r g b], target-sorted
+    rank: torch.Tensor        # (L,) i32 rank within the target run
+    lvalid: torch.Tensor      # (L,) bool
+    max_bucket: int           # largest per-destination load of the block
+
+
+def route_sort_plain(points_cam: torch.Tensor, rgb: torch.Tensor,
+                     mask: torch.Tensor, pose: torch.Tensor,
+                     config: FusionConfig, n_dev: int, slab_w: int,
+                     halo: int) -> RoutedSort:
+    """Stage 1 on one source block ((3,Nb) camera points and f32 rgb,
+    (Nb,) bool mask, (4,4) pose) under the GLOBAL config: frontend,
+    targets, one stable payload sort by target (JAX routing.py:93-140)."""
+    check_slabs(slab_w, halo)
+    dev = points_cam.device
+    zmin, zmax = (torch.tensor(z, dtype=torch.float32, device=dev)
+                  for z in config.z_clip)
+    world = geometry.transform_points(points_cam, pose)
+    coords = geometry.cell_coords(world, config)
+    valid = (mask & (points_cam[2] > zmin) & (points_cam[2] < zmax)
+             & geometry.valid_points(world, config)
+             & geometry.valid_coords(coords, config))
+    x = coords[0]
+    owner = owner_of_x(x, n_dev, slab_w)
+    local = x - owner * slab_w                           # [0, slab_w)
+    sec = torch.where(local < halo, owner - 1,
+                      torch.where(local >= slab_w - halo, owner + 1,
+                                  torch.full_like(owner, -1)))
+    sec_ok = valid & (sec >= 0) & (sec < n_dev)
+    big = torch.full_like(owner, BIG)
+    tgt = torch.cat([torch.where(valid, owner, big),
+                     torch.where(sec_ok, sec, big)])
+    tgt_s, order = torch.sort(tgt, stable=True)
+    payload = torch.cat([world, rgb], dim=0).repeat(1, 2)[:, order]
+    lvalid = tgt_s != BIG
+    lane = torch.arange(tgt_s.numel(), dtype=torch.int32, device=dev)
+    start = torch.searchsorted(tgt_s, tgt_s).to(torch.int32)
+    # invalid lanes continue the last valid run, as JAX's segment fill
+    n_valid = int(lvalid.sum())
+    last = start[n_valid - 1] if n_valid else torch.zeros_like(start[0])
+    rank = lane - torch.where(lvalid, start, last)
+    max_bucket = int(torch.where(lvalid, rank, -1).max()) + 1 \
+        if rank.numel() else 0
+    return RoutedSort(tgt=tgt_s, payload=payload, rank=rank, lvalid=lvalid,
+                      max_bucket=max_bucket)
+
+
+def pack_send_plain(rs: RoutedSort, n_dev: int, send_lanes: int):
+    """Stage 2: the in-budget lanes into the dense (7, n_dev * Bs) send
+    buffer -> ``(send, n_dropped)`` (JAX routing.py:143-160)."""
+    Bs = send_lanes
+    keep = rs.lvalid & (rs.rank < Bs)
+    n_dropped = int((rs.lvalid & ~keep).sum())
+    send = torch.zeros((7, n_dev * Bs), dtype=torch.float32,
+                       device=rs.payload.device)
+    dest = (rs.tgt[keep] * Bs + rs.rank[keep]).long()
+    send[:6, dest] = rs.payload[:, keep]
+    send[6, dest] = 1.0
+    return send, n_dropped
+
+
+def depth_lanes(depth, rgb565, counts, rays):
+    """The depth wire's (K,3,N) camera points, f32 rgb and (K,N) mask, in
+    kernel K1's arithmetic (``integrate.depth_frontend_plain``)."""
+    K, N = depth.shape
+    d = _u16_to_i32(depth)
+    pc = d.to(torch.float32)[:, None, :] * rays[None]
+    lane = torch.arange(N, device=depth.device, dtype=torch.int32)
+    mask = (lane[None, :] < counts[:, None]) & (d > 0)
+    rgb = _rgb565(_u16_to_i32(rgb565)).transpose(0, 1)     # (K,3,N)
+    return pc, rgb, mask
+
+
+def route_pack_plain(points, rgb, mask, poses, config, n_dev, slab_w,
+                     halo, tiers):
+    """The plain pair over a K-frame batch of (K,3,N) f32 camera points
+    and rgb, a (K,N) bool mask and (K,4,4) poses: each frame's source
+    blocks ``s::n_dev`` through ``route_sort_plain``, the tier, then
+    ``pack_send_plain`` -> ``(send (K,n,7,n*Bs) f32, Bs, n_dropped,
+    max_bucket)``."""
+    K = points.shape[0]
+    rs = [[route_sort_plain(points[k][:, s::n_dev], rgb[k][:, s::n_dev],
+                            mask[k][s::n_dev], poses[k], config, n_dev,
+                            slab_w, halo) for s in range(n_dev)]
+          for k in range(K)]
+    mx = max((r.max_bucket for row in rs for r in row), default=0)
+    Bs = tiers[tier_index(tiers, mx)]
+    sends, dropped = [], 0
+    for row in rs:
+        for r in row:
+            send, nd = pack_send_plain(r, n_dev, Bs)
+            sends.append(send)
+            dropped += nd
+    send = torch.stack(sends).reshape(K, n_dev, 7, n_dev * Bs)
+    return send, Bs, dropped, mx
+
+
+def _check(name, t, dtype, shape, dev):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous on {dev}")
+
+
+def _route_pack(wire, pts, rgb, mask, poses, rays, config, n_dev, slab_w,
+                halo, tiers):
+    """Kernel B12 on CUDA tensors: count, scan, one host read of the
+    bucket totals for the tier, pack."""
+    dev = pts.device
+    K = poses.shape[0]
+    N = pts.shape[-1]
+    if n_dev > MAX_SHARDS:
+        raise ValueError(f"route_pack takes at most {MAX_SHARDS} shards")
+    nch = -(-N // 256)
+    nkey = n_dev * n_dev
+    cnt = torch.empty((K, 2, nkey, nch), dtype=torch.int32, device=dev)
+    totals = torch.empty((K, 2, nkey), dtype=torch.int32, device=dev)
+    gf, gi = kernels.geometry_args(config)
+    lib = kernels.library()
+    args = (wire, pts.data_ptr(), rgb.data_ptr(), mask.data_ptr(),
+            int(mask.dtype == torch.bool), poses.data_ptr(),
+            rays.data_ptr() if rays is not None else None, K, N,
+            kernels.ptr(gf), kernels.ptr(gi), float(config.z_clip[0]),
+            float(config.z_clip[1]), n_dev, slab_w, halo, cnt.data_ptr(),
+            totals.data_ptr())
+    kernels.check(lib.launch_route_count(*args, kernels.stream()),
+                  "route_pack")
+    tot = totals.cpu().numpy().astype(np.int64)
+    bucket = tot[:, 0] + tot[:, 1]                        # (K, n*n)
+    mx = int(bucket.max()) if bucket.size else 0
+    Bs = tiers[tier_index(tiers, mx)]
+    dropped = int(np.maximum(bucket - Bs, 0).sum())
+    send = torch.empty((K, n_dev, 7, n_dev * Bs), dtype=torch.float32,
+                       device=dev)
+    kernels.check(lib.launch_route_pack(*args, Bs, send.data_ptr(),
+                                        kernels.stream()), "route_pack")
+    kernels.LAUNCHES["route_pack"] += 1
+    return send, Bs, dropped, mx
+
+
+def route_pack(points: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,
+               poses: torch.Tensor, config: FusionConfig, n_dev: int,
+               slab_w: int, halo: int, tiers: Sequence[int]):
+    """Route and pack K planar frames ((K,3,N) f32 camera points and rgb,
+    a (K,N) bool mask or (K,) i32 count prefixes, (K,4,4) poses) for
+    ``n_dev`` shards of ``slab_w`` cells with ``halo`` under the GLOBAL
+    ``config`` -> ``(send (K,n,7,n*Bs) f32, Bs, n_dropped, max_bucket)``,
+    ``Bs`` the first of ``tiers`` covering ``max_bucket``.  Kernel B12 on
+    CUDA tensors, the plain pair on CPU tensors; bit-identical."""
+    check_slabs(slab_w, halo)
+    K, _, N = points.shape
+    dev = points.device
+    if N % n_dev:
+        raise ValueError(f"max_points {N} must divide the mesh ({n_dev})")
+    _check("points", points, torch.float32, (K, 3, N), dev)
+    _check("rgb", rgb, torch.float32, (K, 3, N), dev)
+    _check("mask", mask, mask.dtype,
+           (K, N) if mask.dtype == torch.bool else (K,), dev)
+    _check("poses", poses, torch.float32, (K, 4, 4), dev)
+    if mask.dtype not in (torch.bool, torch.int32):
+        raise ValueError(f"mask: bool lanes or i32 counts, got "
+                         f"{mask.dtype}")
+    if dev.type == "cpu":
+        if mask.dtype != torch.bool:
+            lane = torch.arange(N, dtype=torch.int32)
+            mask = lane[None, :] < mask[:, None]
+        return route_pack_plain(points, rgb, mask, poses, config, n_dev,
+                                slab_w, halo, tiers)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _route_pack(1, points, rgb, mask, poses, None, config, n_dev,
+                       slab_w, halo, tiers)
+
+
+def route_pack_depth(depth: torch.Tensor, rgb565: torch.Tensor,
+                     counts: torch.Tensor, poses: torch.Tensor,
+                     rays: torch.Tensor, config: FusionConfig, n_dev: int,
+                     slab_w: int, halo: int, tiers: Sequence[int]):
+    """``route_pack`` of K depth frames ((K,N) u16 depth and rgb565, (K,)
+    i32 counts, (K,4,4) poses, (3,N) f32 rays), unprojected in kernel
+    K1's arithmetic (JAX sharding.py:422-446)."""
+    check_slabs(slab_w, halo)
+    K, N = depth.shape
+    dev = depth.device
+    if N % n_dev:
+        raise ValueError(f"max_points {N} must divide the mesh ({n_dev})")
+    _check("depth", depth, torch.uint16, (K, N), dev)
+    _check("rgb565", rgb565, torch.uint16, (K, N), dev)
+    _check("counts", counts, torch.int32, (K,), dev)
+    _check("poses", poses, torch.float32, (K, 4, 4), dev)
+    _check("rays", rays, torch.float32, (3, N), dev)
+    if dev.type == "cpu":
+        pc, rgb, mask = depth_lanes(depth, rgb565, counts, rays)
+        return route_pack_plain(pc, rgb, mask, poses, config, n_dev,
+                                slab_w, halo, tiers)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _route_pack(0, depth, rgb565, counts, poses, rays, config, n_dev,
+                       slab_w, halo, tiers)
+
+
+def exchange_batch(send: torch.Tensor, devices: Sequence[torch.device],
+                   send_lanes: int):
+    """(K,n,7,n*Bs) send stacks -> per destination ``j`` on
+    ``devices[j]``: ``(world (K,3,R), rgb (K,3,R), present (K,R))``, R =
+    n * Bs, source-major (JAX routing.py:175-185)."""
+    K, n = send.shape[:2]
+    Bs = send_lanes
+    out = []
+    for j, dev in enumerate(devices):
+        recv = torch.stack([send[:, s, :, j * Bs:(j + 1) * Bs].to(
+            dev, non_blocking=True) for s in range(n)], dim=2)
+        recv = recv.reshape(K, 7, n * Bs)
+        out.append((recv[:, 0:3].contiguous(), recv[:, 3:6].contiguous(),
+                    recv[:, 6] > 0.5))
+    return out

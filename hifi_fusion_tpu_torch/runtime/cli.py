@@ -21,8 +21,11 @@ Config precedence: flags > JSON config file (its ``"tsdf"`` object holds
 the TSDF family's parameters) > ``FusionConfig`` defaults.  The port's own
 flag is ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions).  There is no fallback: ``--device cuda`` without a card raises.
-``--devices > 1`` and ``--route`` raise ``NotImplementedError``: the port's
-sharding is ROADMAP A12.
+``--devices N`` shards the grid over N slabs (``parallel/sharding.py``;
+with ``--device cuda`` shard j on card j % cards, so shards may share a
+card), ``--route`` routes points to their owner slabs, ``--route-betas``
+sets the send-budget tiers; with ``--devices > 1`` the global config is
+validated per shard only, as the JAX CLI does.
 
     python -m hifi_fusion_tpu_torch.runtime.cli synth --wire depth \\
         --frames 16 --points 307200 --output sweep.npz
@@ -58,10 +61,6 @@ def _model_params(args) -> dict:
 
 
 def _build_config(args) -> FusionConfig:
-    if getattr(args, "devices", 1) > 1 or getattr(args, "route", False):
-        raise NotImplementedError(
-            "--devices > 1 / --route: the port runs on one device; slab "
-            "sharding and routing are ROADMAP A12")
     base = {}
     if getattr(args, "config", None):
         with open(args.config) as f:
@@ -84,7 +83,12 @@ def _build_config(args) -> FusionConfig:
         base["resolution"] = tuple(r) if hasattr(r, "__len__") else (r,) * 3
     if "z_clip" in base:
         base["z_clip"] = tuple(base["z_clip"])
-    return FusionConfig(**base).validate()
+    cfg = FusionConfig(**base)
+    if getattr(args, "devices", 1) > 1:
+        # a sharded grid may exceed the single-grid caps (that is what
+        # sharding is for); each shard's config is validated instead
+        return cfg
+    return cfg.validate()
 
 
 def _device(args):
@@ -308,16 +312,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="torch device of the session: cuda (the hand "
                              "kernels) or cpu (their plain versions)")
         sp.add_argument("--devices", type=int, default=1,
-                        help="shard the grid over this many devices "
-                             "(not in the port: ROADMAP A12); 1 = one "
-                             "device")
+                        help="shard the grid into this many x slabs, shard "
+                             "j on card j %% cards (cuda) or on --device; "
+                             "1 = one grid")
         sp.add_argument("--route", action="store_true",
                         help="with --devices > 1: route points to owner "
-                             "slabs (not in the port: ROADMAP A12)")
+                             "slabs instead of replicating frames")
         sp.add_argument("--route-betas", type=float, nargs="+",
                         dest="route_betas",
-                        help="send-budget tier ladder for --route (not in "
-                             "the port: ROADMAP A12)")
+                        help="send-budget tier ladder for --route (beta ~= "
+                             "receive lanes per shard / (points/shard)); "
+                             "default '2 n_devices' is lossless")
         sp.add_argument("--bbox", type=float, nargs=6,
                         metavar=("XMIN", "XMAX", "YMIN", "YMAX",
                                  "ZMIN", "ZMAX"))

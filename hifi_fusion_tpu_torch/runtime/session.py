@@ -64,9 +64,15 @@ of one width).  With neither, every frame is stepped alone.  Before a
 dispatch the worker waits for the previous one's device work
 (``device_wait``), so the host runs at most one step ahead of the card.
 
-``n_devices``, ``route`` and ``route_betas`` are the JAX session's
-sharding arguments; a session on more than one device raises
-``NotImplementedError`` (the port's sharding is ROADMAP A12).
+``n_devices > 1`` runs the slab-sharded pipeline
+(``parallel/sharding.ShardedFusion``) behind the same contract, shard
+``j`` on ``cuda:(j % device_count)`` for a CUDA ``device`` and on
+``device`` itself otherwise, so shards may share a card; ``route=True``
+routes points to their owner slabs (kernel B12) instead of replicating
+frames, over the send-budget tier ladder ``route_betas`` (default
+``(2, n_devices)``, lossless by construction).  The global config is then
+validated per shard only: sharding exists for extents a single grid
+cannot address.  The TSDF family is single-device (JAX session.py:64-95).
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from ..config import FusionConfig
 from ..io import downloads, pcd, ply
 from ..models.pipeline import FusionPipeline, refine_due
 from ..models.tsdf import TsdfConfig, TsdfPipeline
+from ..parallel.sharding import ShardedFusion, shard_devices
 from ..utils.profiling import StageTimers, annotate
 from . import native
 from .decode import CloudFrame, decode_frame
@@ -114,20 +121,26 @@ class FusionSession:
                  pose_provider: Optional[Callable] = None,
                  live_batching: bool = False, n_devices: int = 1,
                  route: bool = False, route_betas=None):
-        if n_devices > 1:
-            raise NotImplementedError(
-                f"n_devices={n_devices}: the port runs on one device; "
-                f"slab sharding and routing are ROADMAP A12")
-        self.config = config.validate()
+        if model not in ("fusion", "tsdf"):
+            raise ValueError(f"unknown model {model!r}")
         self.model = model
         self.pose_provider = pose_provider
-        if model == "fusion":
-            self.pipeline = FusionPipeline(config, device)
+        if n_devices > 1:
+            if model != "fusion":
+                raise NotImplementedError(
+                    "sharded sessions support the flagship fusion model "
+                    "only; the TSDF variant is single-device")
+            self.pipeline = ShardedFusion(
+                config, shard_devices(device, n_devices), route=route,
+                route_betas=route_betas)
+            self.config = config             # per-shard validation inside
         elif model == "tsdf":
+            self.config = config.validate()
             self.pipeline = TsdfPipeline(
                 TsdfConfig(base=config, **(model_params or {})), device)
         else:
-            raise ValueError(f"unknown model {model!r}")
+            self.config = config.validate()
+            self.pipeline = FusionPipeline(config, device)
         self.output_dir = output_dir
         self.final_refine = final_refine
         self._kb = (batch_frames(config)
@@ -142,7 +155,10 @@ class FusionSession:
         self._started = False
         self._busy = False
         self._errors = []          # failed dispatches into the current grid
-        self._last_step = None     # CUDA event after the last dispatch
+        self._last_step = []       # CUDA events after the last dispatch
+        self._cuda = [d for d in dict.fromkeys(
+            getattr(self.pipeline, "devices", [self.pipeline.device]))
+            if d.type == "cuda"]
 
         self._grid = self.pipeline.init()
         self._rays = None
@@ -173,6 +189,7 @@ class FusionSession:
         if full:
             self.drain()
             with self._glock:
+                self._grid = None       # freed before the new grid is made
                 self._grid = self.pipeline.init()
                 self._errors.clear()
 
@@ -191,7 +208,7 @@ class FusionSession:
         t0 = time.monotonic()
         pipe = self.pipeline
         dev = pipe.device
-        if dev.type == "cuda":
+        if self._cuda:
             kernels.library()
         native.library()
         N = self.config.max_points
@@ -220,8 +237,8 @@ class FusionSession:
         if extract:
             pipe.extract_host(g)
             pipe.grid_metrics(g)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in self._cuda:
+            torch.cuda.synchronize(d)
         dt = time.monotonic() - t0
         log.info("WARM: kernels built and steps run in %.1fs", dt)
         return dt
@@ -289,6 +306,9 @@ class FusionSession:
                 with stage("process_metrics"):
                     metrics = self.pipeline.grid_metrics(grid)
                 with stage("process_clear"):
+                    # the old grid is freed before the new one is made, so
+                    # the device never holds two
+                    self._grid = grid = None
                     self._grid = self.pipeline.init()
                     self._errors.clear()
         finally:
@@ -469,8 +489,8 @@ class FusionSession:
         host runs at most one step ahead (on the CPU every op has finished
         when it returns, and there is nothing to wait for)."""
         with self.timers.stage("device_wait"):
-            if self._last_step is not None:
-                self._last_step.synchronize()
+            for event in self._last_step:
+                event.synchronize()
 
     def _dispatch(self, items) -> None:
         cfg = self.config
@@ -513,9 +533,11 @@ class FusionSession:
             with self.timers.stage("refine"), annotate("refine"):
                 with self._glock:
                     self._grid = self.pipeline.refine(self._grid)
-        if self.pipeline.device.type == "cuda":
-            self._last_step = torch.cuda.Event()
-            self._last_step.record()
+        self._last_step = []
+        for dev in self._cuda:
+            with torch.cuda.device(dev):
+                self._last_step.append(torch.cuda.Event())
+                self._last_step[-1].record()
         now = time.monotonic()
         if self._t_first is None:
             self._t_first = now
@@ -547,8 +569,8 @@ class FusionSession:
             with self._qlock:
                 empty = not self._queue
             if empty and not self._busy:
-                if self.pipeline.device.type == "cuda":
-                    torch.cuda.synchronize(self.pipeline.device)
+                for dev in self._cuda:
+                    torch.cuda.synchronize(dev)
                 return True
             time.sleep(0.002)
         return False

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Times kernels K2 (at its three call shapes), K4, T1, K3, T3 (at two
-shapes), K5, T2p and B11 (at two shapes), and the replays, of two or more
-checkouts of the PyTorch port on one CUDA card, in the order A, B, ...,
-..., B, A.
+"""Times kernels K1, K2 (at its three call shapes), K4, T1, K3, T3 (at two
+shapes), K5, T2p, B11 (at two shapes) and B12 (on two wires), K1 and K5
+with a shard's offset, and the replays, of two or more checkouts of the
+PyTorch port on one CUDA card, in the order A, B, ..., ..., B, A.
 
     python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
 
@@ -25,8 +25,16 @@ JSON line.  The inputs are built through that checkout's own paths, with
 * ``tsdf_surface/batch2``, ``tsdf_surface/replay``: T3 on the surface of
   the config-5 grid after two batches and after every batch of the sweep
   (the grid ``process()`` extracts at the end of the replay);
+* ``depth_frontend``: K1 on the first batch;
 * ``planar_frontend``: K5 on the session's planar wire of the first
   batch (``chip_smoke.planar_wires``), for a checkout that has it;
+* ``depth_frontend/offset``, ``planar_frontend/offset``: K1 and K5 on the
+  same inputs for shard 1 of the bench config split into 4 slabs (its
+  local window and coordinate offset), for a checkout with the offset;
+* ``route_pack/depth``, ``route_pack/planar``: B12 at ``chip_smoke.py``
+  phase 14's shape (4 shards, the default tiers) on the third batch's
+  depth wire and on its session planar wire, for a checkout that has
+  ``parallel/routing``;
 * ``tsdf_lanes_planar``: T2p at TSDF config 5 on the planar wire of the
   third batch's records (``chip_smoke.record_wire``), for a checkout that
   has it;
@@ -61,10 +69,12 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPS = 10
-TIMED = ("hash_insert/integrate", "hash_insert/refine", "hash_insert/tsdf",
-         "normal_fit", "segscan", "dep_stream", "tsdf_surface/batch2",
-         "tsdf_surface/replay", "planar_frontend", "tsdf_lanes_planar",
-         "neighbor_count/ror", "neighbor_count/occupied")
+TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
+         "hash_insert/tsdf", "normal_fit", "segscan", "dep_stream",
+         "tsdf_surface/batch2", "tsdf_surface/replay", "planar_frontend",
+         "tsdf_lanes_planar", "neighbor_count/ror",
+         "neighbor_count/occupied", "depth_frontend/offset",
+         "planar_frontend/offset", "route_pack/depth", "route_pack/planar")
 
 
 def smoke():
@@ -140,6 +150,10 @@ def child(root: str) -> dict:
     # K2 (integrate, refine), K3, K4
     pipe = FusionPipeline(cfg, dev)
     batch = batcher(pipe)
+    b0 = batch(0)
+    res["depth_frontend"] = cs.device_ms(
+        torch, lambda: integrate.depth_frontend(*b0, rays, cfg), tuple,
+        reps=REPS)
     grid, calls = cs.fusion_state(torch, hashing, pipe, batch, rays)
     for shape, (table, ids) in calls.items():
         res[f"hash_insert/{shape}"] = time_insert(table, ids,
@@ -204,6 +218,35 @@ def child(root: str) -> dict:
             torch, lambda: tsdf.tsdf_lanes_planar(*wire, tcfg), tuple,
             reps=REPS)
         del wire
+    for name in ("depth_frontend/offset", "planar_frontend/offset",
+                 "route_pack/depth", "route_pack/planar"):
+        res[name] = None
+    if importlib.util.find_spec("hifi_fusion_tpu_torch.parallel"):
+        from hifi_fusion_tpu_torch.parallel import routing
+        from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+        shard = ShardedFusion(cfg, [dev] * 4).shards[1]
+        res["depth_frontend/offset"] = cs.device_ms(
+            torch, lambda: integrate.depth_frontend(
+                *b0, rays, shard.config, shard.offset), tuple, reps=REPS)
+        p, c, m, t, _, _ = cs.planar_wires(torch, frames,
+                                            dev)["f32-f32-count"]
+        res["planar_frontend/offset"] = cs.device_ms(
+            torch, lambda: integrate.planar_frontend(
+                p, c, m, t, shard.config, offset=shard.offset), tuple,
+            reps=REPS)
+        sf = ShardedFusion(cfg, [dev] * 4, route=True)
+        args = (cfg, 4, sf.slab_w, sf.halo, sf.send_lanes_tiers)
+        b2 = batch(2)
+        res["route_pack/depth"] = cs.device_ms(
+            torch, lambda: routing.route_pack_depth(*b2, rays, *args),
+            tuple, reps=REPS)
+        p, c, m, t, _, _ = cs.planar_wires(torch, frames[16:24],
+                                            dev)["f32-f32-count"]
+        res["route_pack/planar"] = cs.device_ms(
+            torch, lambda: routing.route_pack(p, c, m, t, *args), tuple,
+            reps=REPS)
+        del p, c, m, t, b2
+    torch.cuda.empty_cache()
     for shape in ("ror", "occupied"):
         res[f"neighbor_count/{shape}"] = None
     if importlib.util.find_spec("hifi_fusion_tpu_torch.ops.queries"):

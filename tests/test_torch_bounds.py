@@ -143,3 +143,16 @@ def test_neighbor_count_bytes(Q, live, words):
     b = bounds.neighbor_count(Q, live, words)
     assert b["bytes"] == 8 * Q + 4 * live + 4 * words and b["ops"] == 0
     assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("wire,K,N,n,Bs,want", [
+    # u16 depth + rgb565 a lane, the rays once, a count and a pose a frame;
+    # the (K,n,7,n*Bs) f32 send buffer out, padding included
+    ("depth", 8, 307_200, 4, 38_400,
+     8 * 307_200 * 4 + 307_200 * 12 + 8 * 68 + 8 * 4 * 7 * 4 * 38_400 * 4),
+    # f32 points and rgb and a bool mask a lane, a pose a frame
+    ("planar", 1, 1000, 2, 256, 1000 * 25 + 64 + 2 * 7 * 2 * 256 * 4)])
+def test_route_pack_bytes(wire, K, N, n, Bs, want):
+    b = bounds.route_pack(K, N, n, Bs, wire)
+    assert b["bytes"] == want and b["ops"] == 30 * K * N
+    assert b["bound_by"] == "bytes"

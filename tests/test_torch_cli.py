@@ -13,8 +13,10 @@ against the JAX package's CLI:
   reads (from ``tests/test_serve.py``), and ``cmd_serve`` itself on a
   thread with ``--warm --live-batching``, whose extract equals a direct
   session's;
-* config precedence, ``--trace``, and the refusals: ``--devices 2`` and
-  ``--route`` (ROADMAP A12), ``--device cuda`` without a card.
+* ``fuse --devices 2`` and ``--devices 2 --route``: the sharded grid's
+  cells and counts equal the JAX CLI's;
+* config precedence, ``--trace``, and the refusal of ``--device cuda``
+  without a card.
 
 Every socket has a timeout, and every server thread is joined with one.
 """
@@ -187,13 +189,30 @@ def test_trace_writes_a_profile(tmp_path, sweeps):
         assert json.load(f)["traceEvents"]
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--route"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"],
+                                   ["--devices", "2", "--route"]])
 def test_sharding_flags_raise(tmp_path, sweeps, flags):
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.main(["fuse", "--sweep", sweeps["depth"], "--device", "cpu",
-                  "--output", str(tmp_path)] + CFG_FLAGS + flags)
-    with pytest.raises(NotImplementedError, match="A12"):
-        FusionSession(small_test_config(), "cpu", n_devices=2)
+    """``fuse --devices 2`` (replicated) and ``--devices 2 --route`` shard
+    the grid and write the JAX CLI's cells and counts (positions within
+    1e-5); the sharded session reports its two devices."""
+    argv = ["fuse", "--sweep", sweeps["depth"], "--config",
+            _zclip(tmp_path)] + CFG_FLAGS + flags
+    got = _run(cli.main, argv + ["--output", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    want = _run(jcli.main, argv + ["--output", str(tmp_path / "jax")])
+    assert got["n_points"] == want["n_points"] > 20
+    assert got["frames_integrated"] == want["frames_integrated"] == 4
+    a, n = jpcd.read_pcd(got["cloud"])
+    b, _ = jpcd.read_pcd(want["cloud"])
+    assert n == got["n_points"] and list(a) == list(b)
+    for f in a:
+        np.testing.assert_allclose(a[f], b[f], atol=1e-5, err_msg=f)
+    ma, mb = (jpcd.read_metadata_csv(r["metadata"]) for r in (got, want))
+    np.testing.assert_array_equal(ma["count"], mb["count"])
+    with FusionSession(small_test_config(), "cpu", n_devices=2,
+                       route="--route" in flags,
+                       output_dir=str(tmp_path)) as s:
+        assert s.metrics()["devices"] == 2
 
 
 def test_device_cuda_without_a_card_raises(tmp_path, sweeps):

@@ -589,3 +589,127 @@ def test_neighbor_count_matches_lookup(state):
         f.name: getattr(grid, f.name).cpu()
         for f in dataclasses.fields(grid)})
     assert torch.equal(keep, queries.radius_outlier_mask(cpu, CFG))
+
+
+# -- the shard offset and kernel B12 -----------------------------------------
+
+# 128 x cells at 5 mm: slabs of 16 cells and more for n <= 8 (halo 6)
+ROUTE_CFG = small_test_config(resolution=(0.005,) * 3, z_clip=(0.05, 10.0),
+                              max_points=RAYS.shape[1], capacity_log2=16)
+
+
+@pytest.fixture(scope="module")
+def shard_state(dev):
+    """A 2-shard replicated grid on the card after two batches and two
+    refines, and the third batch's inputs."""
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+    sf = ShardedFusion(ROUTE_CFG, [dev, dev])
+    rays = sf.put_rays(RAYS)
+    grid = sf.init()
+    for i in range(2):
+        sf.step_batch_depth(grid, *_batch(sf, i), rays)
+        sf.refine(grid)
+    return sf, grid, rays, _batch(sf, 2)
+
+
+@pytest.mark.parametrize("j", [0, 1])
+def test_depth_frontend_offset_bit_exact(shard_state, j):
+    sf, grid, rays, b = shard_state
+    p = sf.shards[j]
+    got = integrate.depth_frontend(*b, rays, p.config, p.offset)
+    want = integrate.depth_frontend_plain(*b, rays, p.config, p.offset)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[1] != integrate.INVALID_ID).sum()) > 0
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_planar_frontend_offset_bit_exact(dev, pre):
+    """K5 with a shard's offset, on camera points and on the world wire
+    a router hands a shard (``pre_transformed``)."""
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+    sf = ShardedFusion(CFG, [dev] * 2)
+    (pts, rgb, mask, poses), _ = _planar_inputs(dev, 4, 4099, "f32", "f32",
+                                                "bool", seed=21)
+    if pre:
+        from hifi_fusion_tpu_torch.ops.geometry import transform_points
+        pts = transform_points(pts, poses).contiguous()
+    for p in sf.shards:
+        got = integrate.planar_frontend(pts, rgb, mask, poses, p.config,
+                                        offset=p.offset,
+                                        pre_transformed=pre)
+        want = integrate.planar_frontend_plain(pts, rgb, mask, poses, None,
+                                               p.config, p.offset, pre)
+        assert all(_same_words(g, w) for g, w in zip(got, want))
+        n_valid = int((got[1] != integrate.INVALID_ID).sum())
+        assert 0 < n_valid < got[1].numel()
+
+
+@pytest.mark.parametrize("j", [0, 1])
+def test_dep_stream_and_normal_fit_on_a_shard(shard_state, j):
+    """K3 and K4 on a shard's grid: owner centers and the orientation take
+    the shard's offset."""
+    sf, grid, rays, b = shard_state
+    p, g = sf.shards[j], grid[j]
+    world, ids, _ = integrate.depth_frontend(*b, rays, p.config, p.offset)
+    sid, order = torch.sort(ids, stable=True)
+    n = int((sid != integrate.INVALID_ID).sum())
+    uids, run = torch.unique_consecutive(sid[:n], return_inverse=True)
+    slot_pt = hashing.lookup(g.key, uids, p.config.max_probes,
+                             p.config.capacity)[run].contiguous()
+    pts = world[:, order[:n]].contiguous()
+    gk = dataclasses.replace(g, cyl_stats=g.cyl_stats.clone())
+    gp = dataclasses.replace(g, cyl_stats=g.cyl_stats.clone())
+    integrate.dep_stream(pts, slot_pt, gk, p.config, p.offset)
+    integrate.dep_stream_plain(pts, slot_pt, gp, p.config, p.offset)
+    ok, err = checks.cyl_stats_error(gk.cyl_stats.cpu().numpy(),
+                                     gp.cyl_stats.cpu().numpy(),
+                                     p.config.cylinder_radius)
+    assert ok, err
+    assert float((gk.cyl_stats - g.cyl_stats).view(-1, 5)[:, 4].sum()) > 0
+    integrate.integrate_batch_depth(gk, *b, rays, p.config, p.offset)
+    cand = torch.nonzero((gk.n_pts > 0) & ~gk.normal_found).squeeze(1).to(
+        torch.int32)
+    gn = dataclasses.replace(gk, normal=gk.normal.clone(),
+                             normal_found=gk.normal_found.clone())
+    gq = dataclasses.replace(gk, normal=gk.normal.clone(),
+                             normal_found=gk.normal_found.clone())
+    nk, ok_k = refine.normal_fit(cand, gn, p.config, p.offset)
+    nplain, ok_p = refine.normal_fit_plain(cand, gq, p.config, p.offset)
+    assert torch.equal(ok_k, ok_p) and int(ok_k.sum()) > 0
+    assert float((gn.normal - gq.normal).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("wire", ["depth", "planar-bool", "planar-count"])
+@pytest.mark.parametrize("betas", [None, (0.05,)])
+def test_route_pack_bit_exact(dev, n, wire, betas):
+    """B12 against its plain pair on K=4 batches: the send buffer bit for
+    bit, the budget, the drops and the largest bucket; with the default
+    tiers (lossless) and with a 128-lane budget (drops wherever a bucket
+    holds more)."""
+    from hifi_fusion_tpu_torch.parallel import routing
+    from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
+    sf = ShardedFusion(ROUTE_CFG, [dev] * n, route=True,
+                       route_betas=betas)
+    args = (ROUTE_CFG, n, sf.slab_w, sf.halo, sf.send_lanes_tiers)
+    if wire == "depth":
+        b = _batch(sf, 1)
+        rays = sf.put_rays(RAYS)
+        n0 = kernels.LAUNCHES["route_pack"]
+        got = routing.route_pack_depth(*b, rays, *args)
+        pc, rgb, mask = routing.depth_lanes(*b[:3], rays)
+        want = routing.route_pack_plain(pc, rgb, mask, b[3], *args)
+    else:
+        (pts, rgb, mask, poses), _ = _planar_inputs(
+            dev, 4, 4096, "f32", "f32", wire.split("-")[1], seed=n)
+        n0 = kernels.LAUNCHES["route_pack"]
+        got = routing.route_pack(pts, rgb, mask, poses, *args)
+        if mask.dtype != torch.bool:
+            mask = (torch.arange(4096, device=dev)[None, :]
+                    < mask[:, None])
+        want = routing.route_pack_plain(pts, rgb, mask, poses, *args)
+    assert kernels.LAUNCHES["route_pack"] == n0 + 1
+    assert _same_words(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert got[3] > 0 and (got[2] > 0) == (got[3] > got[1])

@@ -40,10 +40,12 @@ and prints no result line):
    for B11 that of one ``avg_pool3d`` summing every window of the dense
    occupancy volume (its counts at the queried cells checked equal),
    yardsticks the port never calls; B12 (owner-slab route and pack)
-   bit-exact against its plain pair on the third K=8 batch at phase 14's
-   shape (4 shards, depth wire and the session's planar wire) and at
-   phase 15's (the launch-file extent, 8 shards, depth wire), the host
-   read of its bucket totals inside the time;
+   bit-exact against its plain pair (world, rgb and present in the
+   destinations' layout) on the third K=8 batch at phase 14's shape (4
+   shards, depth wire and the session's planar wire) and at phase 15's
+   (the launch-file extent, 8 shards, depth wire), the host read of its
+   budget inside the time, and its device ms split by pass (count, scan
+   and budget with the budget's copy; pack; fill);
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -1605,12 +1607,13 @@ def flagship_config(FusionConfig):
 
 def check_route_pack(torch, cfg, frames, flag_cfg, flag_frames, rays_np,
                      dev) -> dict:
-    """Phase 3, B12: bit-exact against its plain pair (send buffer, budget,
-    drops, largest bucket) and timed with its bound on the third K=8 batch
-    at phase 14's shape (the bench config, 4 shards, the default tiers) on
-    the depth wire and the session's planar wire (f32 points and colour,
-    count prefixes), and at phase 15's (the launch-file extent, 8 shards)
-    on the depth wire.  The entry is the depth wire at phase 14's shape,
+    """Phase 3, B12: bit-exact against its plain pair (world, rgb and
+    present in the destinations' layout, budget, drops, largest bucket),
+    its device ms split by pass, and timed with its bound on the third K=8
+    batch at phase 14's shape (the bench config, 4 shards, the default
+    tiers) on the depth wire and the session's planar wire (f32 points and
+    colour, count prefixes), and at phase 15's (the launch-file extent, 8
+    shards) on the depth wire.  The entry is the depth wire at phase 14's shape,
     every shape's under ``shapes``."""
     from hifi_fusion_tpu_torch import bounds
     from hifi_fusion_tpu_torch.parallel import routing
@@ -1635,8 +1638,9 @@ def check_route_pack(torch, cfg, frames, flag_cfg, flag_frames, rays_np,
                  put(np.full((K,), fs[0].count, np.int32)),
                  put(np.stack([f.pose for f in fs])))
 
-            def kern(b=b, args=args):
-                return routing.route_pack_depth(*b, rays, *args)
+            def kern(b=b, args=args, marks=None):
+                return routing.route_pack_depth(*b, rays, *args,
+                                                marks=marks)
 
             def plain(b=b, args=args):
                 return routing.route_pack_plain(
@@ -1647,32 +1651,56 @@ def check_route_pack(torch, cfg, frames, flag_cfg, flag_frames, rays_np,
                 "f32-f32-count"]
             lanes = (torch.arange(N, device=dev)[None, :] < cnt[:, None])
 
-            def kern(p=p, col=col, cnt=cnt, t=t, args=args):
-                return routing.route_pack(p, col, cnt, t, *args)
+            def kern(p=p, col=col, cnt=cnt, t=t, args=args, marks=None):
+                return routing.route_pack(p, col, cnt, t, *args,
+                                          marks=marks)
 
             def plain(p=p, col=col, lanes=lanes, t=t, args=args):
                 return routing.route_pack_plain(p, col, lanes, t, *args)
             mask_bytes = 0
         got, want = kern(), plain()
-        if not bits_equal(torch, got[0], want[0]) or got[1:] != want[1:]:
+        same = {"world": bits_equal(torch, got.world, want.world),
+                "rgb": bits_equal(torch, got.rgb, want.rgb),
+                "present": torch.equal(got.present, want.present)}
+        if not all(same.values()) or got[3:] != want[3:]:
             raise AssertionError(f"route_pack {name}: kernel (Bs, drops, "
-                                 f"max bucket) {got[1:]}, plain {want[1:]}, "
-                                 f"send bits equal "
-                                 f"{bits_equal(torch, got[0], want[0])}")
-        Bs, dropped, mx = got[1:]
-        n_sent = int((got[0][:, :, 6] > 0).sum())
+                                 f"max bucket) {got[3:]}, plain {want[3:]}, "
+                                 f"equal {same}")
+        Bs, dropped, mx = got[3:]
+        n_sent = int(got.present.sum())
         del got, want
         ms, pms = time_pair(torch, kern, plain, tuple)
+        passes = route_pack_passes(torch, kern)
         shapes[name] = {**timed(0.0, ms, pms, bounds.route_pack(
             K, N, n, Bs, wire, mask_bytes)), "n": n, "Bs": Bs,
             "tiers": list(sf.send_lanes_tiers), "max_bucket": mx,
-            "dropped": dropped, "sent": n_sent}
-        log(f"phase 3: route_pack {name}: bit-exact, K {K} x {N} lanes, "
-            f"{n} shards, tiers {sf.send_lanes_tiers}, max bucket {mx} -> "
-            f"Bs {Bs}, {n_sent} lanes sent, {dropped} dropped; {ms:.4f} "
-            f"ms, plain {pms:.4f} ms")
+            "dropped": dropped, "sent": n_sent, "passes_ms": passes}
+        log(f"phase 3: route_pack {name}: bit-exact (world, rgb, present), "
+            f"K {K} x {N} lanes, {n} shards, tiers {sf.send_lanes_tiers}, "
+            f"max bucket {mx} -> Bs {Bs}, {n_sent} lanes sent, {dropped} "
+            f"dropped; {ms:.4f} ms, plain {pms:.4f} ms; passes (ms) "
+            f"{json.dumps(passes)}")
         torch.cuda.empty_cache()
     return {**shapes["depth_n4"], "shapes": shapes}
+
+
+def route_pack_passes(torch, kern) -> dict:
+    """B12's device ms by pass, medians of ``REPS`` calls of ``kern(marks)``
+    (a separate call from the timed ones, events at each pass boundary):
+    count, scan and budget with the budget's copy to the host; pack, any
+    idle time before it included (the host no longer waits between the
+    two); fill."""
+    names = ("count_scan", "pack", "fill")
+    times = {k: [] for k in names}
+    for _ in range(REPS):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        kern(marks=marks)
+        torch.cuda.synchronize()
+        for k, a, b in zip(names, marks, marks[1:]):
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def shard_counts(cell, cfg, slab_w, n) -> list:

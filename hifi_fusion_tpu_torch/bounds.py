@@ -185,13 +185,13 @@ def route_pack(K: int, N: int, n: int, Bs: int, wire: str = "depth",
     wire in (``depth``: u16 depth and rgb565, 4 B a lane, the (3,N) f32
     rays and an i32 count a frame; ``planar``: f32 points and rgb, 24 B a
     lane, and the mask, 1 B a lane or with ``mask_bytes=0`` a 4 B count a
-    frame) with a 4x4 pose a frame; the (K,n,7,n*Bs) f32 send buffer out,
-    its zeroed padding included.  ~30 f32 operations a lane (unproject,
-    transform, cell coordinates)."""
+    frame) with a 4x4 pose a frame; K * n * n * Bs columns out, 25 B
+    each (world and rgb f32, present 1 B), the zeroed padding included.
+    ~30 f32 operations a lane (unproject, transform, cell coordinates)."""
     px = K * N
     if wire == "depth":
         wire_bytes = px * 4 + 12 * N + K * (4 + 64)
     else:
         wire_bytes = px * (24 + mask_bytes) + K * (
             64 + (4 if mask_bytes == 0 else 0))
-    return bound(wire_bytes + K * n * 7 * n * Bs * 4, 30 * px)
+    return bound(wire_bytes + K * n * n * Bs * 25, 30 * px)

@@ -85,12 +85,15 @@ _SIGNATURES = {
     "launch_tsdf_surface": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                             _P, _P, _P],
     # wire, pts, rgb, mask, mask_is_bool, poses, rays, K, N, geo_f, geo_i,
-    # zmin, zmax, n, slab_w, halo, cnt, totals, stream
+    # zmin, zmax, n, slab_w, halo, cnt, totals, tiers, ntiers, budget,
+    # budget_host, stream
     "launch_route_count": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _F,
-                           _F, _I, _I, _I, _P, _P, _P],
-    # the same through totals, then Bs, send, stream
+                           _F, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    # the count's arguments through totals, then budget, out, stream
     "launch_route_pack": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _F,
-                          _F, _I, _I, _I, _P, _P, _I, _P, _P],
+                          _F, _I, _I, _I, _P, _P, _P, _P, _P],
+    # totals, budget, K, n, Bs_max, out, present, stream
+    "launch_route_fill": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

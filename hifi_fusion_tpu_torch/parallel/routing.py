@@ -26,23 +26,30 @@ that its integrate takes as pre-transformed, keeping only its local
 coord window.
 
 Kernel B12 (``csrc/route_pack.cu``) does stages 1-4 for a whole K-frame
-batch of the depth wire or the planar f32 wire (``route_pack``);
-``route_sort_plain`` and ``pack_send_plain`` are the JAX package's two
-stages in plain PyTorch, which ``route_pack_plain`` applies frame by frame
-and source by source.  A CPU tensor runs the plain pair, a CUDA tensor
-the kernel.
+batch of the depth wire or the planar f32 wire (``route_pack``) and writes
+the result in the layout the destinations read: ``Routed``'s world and
+rgb (n, K, 3, R) and present (n, K, R), R = n * Bs, destination-major,
+column ``s * Bs + rank`` of destination ``j`` holding source ``s``'s lane
+of rank ``rank`` in bucket ``j``, which is every source's send buffer with
+its destination axis moved to the front.  ``route_sort_plain`` and
+``pack_send_plain`` are the JAX package's two stages in plain PyTorch
+(the send buffer of one source block); ``route_pack_plain`` applies them
+frame by frame and source by source and rearranges their send buffers
+into that layout.  A CPU tensor runs the plain pair, a CUDA tensor the
+kernel; the two return the same structure.
 
 The exchange (``exchange_batch``) is one code path for every placement:
-destination ``j`` gathers its bucket of every source with
-``.to(device_j, non_blocking=True)``, a no-op when the shards share a
-device and a peer copy between cards.
+destination ``j`` takes the ``[j]`` views with ``.to(device_j,
+non_blocking=True)``: the views themselves when the shards share a device,
+one contiguous peer copy per tensor between cards.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import NamedTuple, Sequence
 
-import numpy as np
 import torch
 
 from .. import kernels
@@ -52,6 +59,12 @@ from ..ops.integrate import _rgb565, _u16_to_i32
 
 BIG = torch.iinfo(torch.int32).max   # target of an invalid lane
 MAX_SHARDS = 16                      # B12's (source, target) key space
+MAX_TIERS = 16                       # B12's budget ladder
+# B12's 32-bit indices: frames on the grid's y axis, output rows, and the
+# columns of a row (4 a thread, a block's 1,024 past the last)
+INT32_MAX = 2**31 - 1
+MAX_FRAMES = 65535
+MAX_ROW = INT32_MAX - 4 * 256
 
 
 def check_slabs(slab_w: int, halo: int) -> None:
@@ -86,6 +99,17 @@ class RoutedSort(NamedTuple):
     rank: torch.Tensor        # (L,) i32 rank within the target run
     lvalid: torch.Tensor      # (L,) bool
     max_bucket: int           # largest per-destination load of the block
+
+
+class Routed(NamedTuple):
+    """A routed K-frame batch in its destinations' layout, R = n * Bs
+    lanes a destination, source-major (column ``s * Bs + rank``)."""
+    world: torch.Tensor       # (n,K,3,R) f32, 0 past each bucket's load
+    rgb: torch.Tensor         # (n,K,3,R) f32, 0 past each bucket's load
+    present: torch.Tensor     # (n,K,R) bool
+    send_lanes: int           # Bs, the tier chosen
+    n_dropped: int            # lanes ranked past Bs
+    max_bucket: int           # largest (frame, source, target) load
 
 
 def route_sort_plain(points_cam: torch.Tensor, rgb: torch.Tensor,
@@ -156,27 +180,31 @@ def depth_lanes(depth, rgb565, counts, rays):
 
 
 def route_pack_plain(points, rgb, mask, poses, config, n_dev, slab_w,
-                     halo, tiers):
+                     halo, tiers) -> Routed:
     """The plain pair over a K-frame batch of (K,3,N) f32 camera points
     and rgb, a (K,N) bool mask and (K,4,4) poses: each frame's source
     blocks ``s::n_dev`` through ``route_sort_plain``, the tier, then
-    ``pack_send_plain`` -> ``(send (K,n,7,n*Bs) f32, Bs, n_dropped,
-    max_bucket)``."""
+    ``pack_send_plain``; the (K, n, 7, n * Bs) send buffers rearranged
+    destination-major (a permutation, nothing computed) -> ``Routed``."""
     K = points.shape[0]
-    rs = [[route_sort_plain(points[k][:, s::n_dev], rgb[k][:, s::n_dev],
-                            mask[k][s::n_dev], poses[k], config, n_dev,
-                            slab_w, halo) for s in range(n_dev)]
+    n = n_dev
+    rs = [[route_sort_plain(points[k][:, s::n], rgb[k][:, s::n],
+                            mask[k][s::n], poses[k], config, n, slab_w,
+                            halo) for s in range(n)]
           for k in range(K)]
     mx = max((r.max_bucket for row in rs for r in row), default=0)
     Bs = tiers[tier_index(tiers, mx)]
     sends, dropped = [], 0
     for row in rs:
         for r in row:
-            send, nd = pack_send_plain(r, n_dev, Bs)
+            send, nd = pack_send_plain(r, n, Bs)
             sends.append(send)
             dropped += nd
-    send = torch.stack(sends).reshape(K, n_dev, 7, n_dev * Bs)
-    return send, Bs, dropped, mx
+    # [k, s, channel, j, rank] -> [j, k, channel, s * Bs + rank]
+    recv = torch.stack(sends).reshape(K, n, 7, n, Bs).permute(
+        3, 0, 2, 1, 4).reshape(n, K, 7, n * Bs)
+    return Routed(recv[:, :, 0:3].contiguous(), recv[:, :, 3:6].contiguous(),
+                  recv[:, :, 6] > 0.5, Bs, dropped, mx)
 
 
 def _check(name, t, dtype, shape, dev):
@@ -187,51 +215,101 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name}: must be contiguous on {dev}")
 
 
+_host = threading.local()
+
+
+def _host_budget(dev: torch.device):
+    """A pinned host buffer of B12's 3 budget words and an event, kept per
+    device and per calling thread."""
+    bufs = _host.__dict__.setdefault("bufs", {})
+    if dev.index not in bufs:
+        bufs[dev.index] = (torch.empty(3, dtype=torch.int64,
+                                       pin_memory=True), torch.cuda.Event())
+    return bufs[dev.index]
+
+
+def _mark(marks, i):
+    if marks is not None:
+        marks[i].record()
+
+
 def _route_pack(wire, pts, rgb, mask, poses, rays, config, n_dev, slab_w,
-                halo, tiers):
-    """Kernel B12 on CUDA tensors: count, scan, one host read of the
-    bucket totals for the tier, pack."""
+                halo, tiers, marks):
+    """Kernel B12 on CUDA tensors: count, scan and the budget on the card,
+    the budget copied to a pinned buffer, pack and fill into an output
+    sized for the top tier, all enqueued before the one host read; then
+    views of the chosen tier's columns.  ``marks``, None or four CUDA
+    events made by the caller (so that timing adds no event creation
+    between the launches), records them before the count, after the
+    budget's copy, after the pack and after the fill."""
     dev = pts.device
     K = poses.shape[0]
     N = pts.shape[-1]
-    if n_dev > MAX_SHARDS:
+    n = n_dev
+    if n > MAX_SHARDS:
         raise ValueError(f"route_pack takes at most {MAX_SHARDS} shards")
-    nch = -(-N // 256)
-    nkey = n_dev * n_dev
-    cnt = torch.empty((K, 2, nkey, nch), dtype=torch.int32, device=dev)
+    if not 1 <= len(tiers) <= MAX_TIERS:
+        raise ValueError(f"route_pack takes 1 to {MAX_TIERS} budget tiers")
+    top = max(tiers)
+    rows = 2 * n * K * 3 * n + n * K * n
+    if K > MAX_FRAMES or rows > INT32_MAX or top > MAX_ROW:
+        raise ValueError(
+            f"route_pack: {K} frames (at most {MAX_FRAMES}), {rows} output "
+            f"rows (at most {INT32_MAX}) or a budget of {top} lanes (at "
+            f"most {MAX_ROW}) past the kernel's 32-bit indices")
+    nchs = -(-(N // n) // 256)           # 256-lane chunks of a source
+    nkey = n * n
+    cnt = torch.empty((K, 2, nkey, nchs), dtype=torch.int32, device=dev)
     totals = torch.empty((K, 2, nkey), dtype=torch.int32, device=dev)
+    budget = torch.empty(3, dtype=torch.int64, device=dev)
+    out = torch.empty(2 * n * K * 3 * n * top, dtype=torch.float32,
+                      device=dev)
+    present = torch.empty(n * K * n * top, dtype=torch.bool, device=dev)
+    host, done = _host_budget(dev)
     gf, gi = kernels.geometry_args(config)
     lib = kernels.library()
     args = (wire, pts.data_ptr(), rgb.data_ptr(), mask.data_ptr(),
             int(mask.dtype == torch.bool), poses.data_ptr(),
             rays.data_ptr() if rays is not None else None, K, N,
             kernels.ptr(gf), kernels.ptr(gi), float(config.z_clip[0]),
-            float(config.z_clip[1]), n_dev, slab_w, halo, cnt.data_ptr(),
+            float(config.z_clip[1]), n, slab_w, halo, cnt.data_ptr(),
             totals.data_ptr())
-    kernels.check(lib.launch_route_count(*args, kernels.stream()),
+    stream = kernels.stream()
+    _mark(marks, 0)
+    kernels.check(lib.launch_route_count(
+        *args, (ctypes.c_int * len(tiers))(*tiers), len(tiers),
+        budget.data_ptr(), host.data_ptr(), stream), "route_pack")
+    done.record()
+    _mark(marks, 1)
+    kernels.check(lib.launch_route_pack(*args, budget.data_ptr(),
+                                        out.data_ptr(), stream),
                   "route_pack")
-    tot = totals.cpu().numpy().astype(np.int64)
-    bucket = tot[:, 0] + tot[:, 1]                        # (K, n*n)
-    mx = int(bucket.max()) if bucket.size else 0
-    Bs = tiers[tier_index(tiers, mx)]
-    dropped = int(np.maximum(bucket - Bs, 0).sum())
-    send = torch.empty((K, n_dev, 7, n_dev * Bs), dtype=torch.float32,
-                       device=dev)
-    kernels.check(lib.launch_route_pack(*args, Bs, send.data_ptr(),
-                                        kernels.stream()), "route_pack")
+    _mark(marks, 2)
+    kernels.check(lib.launch_route_fill(
+        totals.data_ptr(), budget.data_ptr(), K, n, top, out.data_ptr(),
+        present.data_ptr(), stream), "route_pack")
+    _mark(marks, 3)
     kernels.LAUNCHES["route_pack"] += 1
-    return send, Bs, dropped, mx
+    done.synchronize()
+    mx, Bs, dropped = host.tolist()
+    R = n * Bs
+    out = out[:2 * n * K * 3 * R].view(2, n, K, 3, R)
+    return Routed(out[0], out[1], present[:n * K * R].view(n, K, R), Bs,
+                  dropped, mx)
 
 
 def route_pack(points: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,
                poses: torch.Tensor, config: FusionConfig, n_dev: int,
-               slab_w: int, halo: int, tiers: Sequence[int]):
+               slab_w: int, halo: int, tiers: Sequence[int],
+               marks=None) -> Routed:
     """Route and pack K planar frames ((K,3,N) f32 camera points and rgb,
     a (K,N) bool mask or (K,) i32 count prefixes, (K,4,4) poses) for
     ``n_dev`` shards of ``slab_w`` cells with ``halo`` under the GLOBAL
-    ``config`` -> ``(send (K,n,7,n*Bs) f32, Bs, n_dropped, max_bucket)``,
-    ``Bs`` the first of ``tiers`` covering ``max_bucket``.  Kernel B12 on
-    CUDA tensors, the plain pair on CPU tensors; bit-identical."""
+    ``config`` -> ``Routed`` (destination-major world, rgb and present,
+    ``Bs`` the first of ``tiers`` covering ``max_bucket``, the drops).
+    Kernel B12 on CUDA tensors, the plain pair on CPU tensors;
+    bit-identical.  ``marks`` (four CUDA events, CUDA only) time the
+    kernel's passes (``_route_pack``)."""
     check_slabs(slab_w, halo)
     K, _, N = points.shape
     dev = points.device
@@ -254,13 +332,14 @@ def route_pack(points: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return _route_pack(1, points, rgb, mask, poses, None, config, n_dev,
-                       slab_w, halo, tiers)
+                       slab_w, halo, tiers, marks)
 
 
 def route_pack_depth(depth: torch.Tensor, rgb565: torch.Tensor,
                      counts: torch.Tensor, poses: torch.Tensor,
                      rays: torch.Tensor, config: FusionConfig, n_dev: int,
-                     slab_w: int, halo: int, tiers: Sequence[int]):
+                     slab_w: int, halo: int, tiers: Sequence[int],
+                     marks=None) -> Routed:
     """``route_pack`` of K depth frames ((K,N) u16 depth and rgb565, (K,)
     i32 counts, (K,4,4) poses, (3,N) f32 rays), unprojected in kernel
     K1's arithmetic (JAX sharding.py:422-446)."""
@@ -281,21 +360,18 @@ def route_pack_depth(depth: torch.Tensor, rgb565: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return _route_pack(0, depth, rgb565, counts, poses, rays, config, n_dev,
-                       slab_w, halo, tiers)
+                       slab_w, halo, tiers, marks)
 
 
-def exchange_batch(send: torch.Tensor, devices: Sequence[torch.device],
-                   send_lanes: int):
-    """(K,n,7,n*Bs) send stacks -> per destination ``j`` on
-    ``devices[j]``: ``(world (K,3,R), rgb (K,3,R), present (K,R))``, R =
-    n * Bs, source-major (JAX routing.py:175-185)."""
-    K, n = send.shape[:2]
-    Bs = send_lanes
-    out = []
-    for j, dev in enumerate(devices):
-        recv = torch.stack([send[:, s, :, j * Bs:(j + 1) * Bs].to(
-            dev, non_blocking=True) for s in range(n)], dim=2)
-        recv = recv.reshape(K, 7, n * Bs)
-        out.append((recv[:, 0:3].contiguous(), recv[:, 3:6].contiguous(),
-                    recv[:, 6] > 0.5))
-    return out
+def exchange_batch(world: torch.Tensor, rgb: torch.Tensor,
+                   present: torch.Tensor, devices: Sequence[torch.device]):
+    """``route_pack``'s destination-major (n,K,3,R) world and rgb and
+    (n,K,R) present -> per destination ``j`` on ``devices[j]``: ``(world
+    (K,3,R), rgb (K,3,R), present (K,R))``, R = n * Bs, source-major (JAX
+    routing.py:175-185).  Each is the ``[j]`` view moved with
+    ``.to(devices[j], non_blocking=True)``: the view itself, no copy,
+    where the destination shares the buffers' device, else one contiguous
+    peer copy."""
+    return [tuple(t[j].to(dev, non_blocking=True)
+                  for t in (world, rgb, present))
+            for j, dev in enumerate(devices)]

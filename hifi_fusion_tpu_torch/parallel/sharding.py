@@ -143,10 +143,10 @@ class ShardedFusion:
         rgb, present, poses, pre_transformed=True, extra_dropped=...)`` on
         every shard, the router's drops booked on shard 0 only (JAX
         sharding.py:337-340); ``single`` drops the batch axis."""
-        send, Bs, dropped, mx = packed
+        world, rgb, present, Bs, dropped, mx = packed
         self.tier_counts[Bs] = self.tier_counts.get(Bs, 0) + 1
         self.max_bucket = max(self.max_bucket, mx)
-        recv = routing.exchange_batch(send, self.devices, Bs)
+        recv = routing.exchange_batch(world, rgb, present, self.devices)
         for j, (p, lanes) in enumerate(zip(self.shards, recv)):
             lanes = (*lanes, poses.to(p.device, non_blocking=True))
             if single:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times kernels K1, K2 (at its three call shapes), K4, T1, K3, T3 (at two
-shapes), K5, T2p, B11 (at two shapes) and B12 (on two wires), K1 and K5
-with a shard's offset, and the replays, of two or more checkouts of the
-PyTorch port on one CUDA card, in the order A, B, ..., ..., B, A.
+shapes), K5, T2p, B11 (at two shapes) and B12 (on two wires, alone and
+with the exchange), K1 and K5 with a shard's offset, and the replays, of
+two or more checkouts of the PyTorch port on one CUDA card, in the order
+A, B, ..., ..., B, A.
 
     python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
 
@@ -35,6 +36,12 @@ JSON line.  The inputs are built through that checkout's own paths, with
   phase 14's shape (4 shards, the default tiers) on the third batch's
   depth wire and on its session planar wire, for a checkout that has
   ``parallel/routing``;
+* ``route_exchange/depth``, ``route_exchange/planar``: the same B12 call
+  followed by ``routing.exchange_batch`` to the 4 shards' devices (all
+  the one card), the unit a routed dispatch runs before its shards'
+  integrates, each checkout through its own pair of calls: the views of
+  B12's destination-major output, or for a checkout whose B12 returns
+  the (K, n, 7, n * Bs) send buffer, its stack-and-slice copies;
 * ``tsdf_lanes_planar``: T2p at TSDF config 5 on the planar wire of the
   third batch's records (``chip_smoke.record_wire``), for a checkout that
   has it;
@@ -42,9 +49,11 @@ JSON line.  The inputs are built through that checkout's own paths, with
   fusion replay's final grid (``chip_smoke.fusion_final_grid``) over all
   2^22 slots (-1 where unoccupied, the ROR call) and over the occupied
   slots alone, for a checkout that has ``ops/queries``;
-* ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``: the 96-frame replays of
-  phases 4, 6 and 7 (push to drain; ``process()`` follows, untimed; the
-  planar one for a checkout with ``push_frame``).
+* ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``, ``sharded_mpts``: the
+  96-frame replays of phases 4, 6, 7 and 14's routed one (4 shards on the
+  card; push to drain; ``process()`` follows, untimed; the planar one for
+  a checkout with ``push_frame``, the sharded one for a checkout with
+  ``parallel/routing``).
 
 Kernel times are device times (``chip_smoke.device_ms``): the median of 10
 calls, CUDA events around each call, with a sleep kernel ahead of the
@@ -74,7 +83,8 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "tsdf_surface/batch2", "tsdf_surface/replay", "planar_frontend",
          "tsdf_lanes_planar", "neighbor_count/ror",
          "neighbor_count/occupied", "depth_frontend/offset",
-         "planar_frontend/offset", "route_pack/depth", "route_pack/planar")
+         "planar_frontend/offset", "route_pack/depth", "route_pack/planar",
+         "route_exchange/depth", "route_exchange/planar")
 
 
 def smoke():
@@ -100,6 +110,21 @@ def callers_insert(hashing):
         overflow += n_failed
         return slot
     return insert
+
+
+def route_exchange(routing, pack, devices):
+    """B12's call ``pack()`` and the exchange of its result to
+    ``devices``, through the checkout's own API."""
+    if hasattr(routing, "Routed"):
+        def fn():
+            r = pack()
+            return routing.exchange_batch(r.world, r.rgb, r.present,
+                                          devices)
+    else:
+        def fn():
+            send, Bs = pack()[:2]
+            return routing.exchange_batch(send, devices, Bs)
+    return fn
 
 
 def child(root: str) -> dict:
@@ -219,9 +244,11 @@ def child(root: str) -> dict:
             reps=REPS)
         del wire
     for name in ("depth_frontend/offset", "planar_frontend/offset",
-                 "route_pack/depth", "route_pack/planar"):
+                 "route_pack/depth", "route_pack/planar",
+                 "route_exchange/depth", "route_exchange/planar"):
         res[name] = None
-    if importlib.util.find_spec("hifi_fusion_tpu_torch.parallel"):
+    routed = importlib.util.find_spec("hifi_fusion_tpu_torch.parallel")
+    if routed:
         from hifi_fusion_tpu_torch.parallel import routing
         from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
         shard = ShardedFusion(cfg, [dev] * 4).shards[1]
@@ -237,14 +264,17 @@ def child(root: str) -> dict:
         sf = ShardedFusion(cfg, [dev] * 4, route=True)
         args = (cfg, 4, sf.slab_w, sf.halo, sf.send_lanes_tiers)
         b2 = batch(2)
-        res["route_pack/depth"] = cs.device_ms(
-            torch, lambda: routing.route_pack_depth(*b2, rays, *args),
-            tuple, reps=REPS)
         p, c, m, t, _, _ = cs.planar_wires(torch, frames[16:24],
                                             dev)["f32-f32-count"]
-        res["route_pack/planar"] = cs.device_ms(
-            torch, lambda: routing.route_pack(p, c, m, t, *args), tuple,
-            reps=REPS)
+        for wire, pack in (
+                ("depth", lambda: routing.route_pack_depth(*b2, rays,
+                                                           *args)),
+                ("planar", lambda: routing.route_pack(p, c, m, t, *args))):
+            res[f"route_pack/{wire}"] = cs.device_ms(torch, pack, tuple,
+                                                     reps=REPS)
+            res[f"route_exchange/{wire}"] = cs.device_ms(
+                torch, route_exchange(routing, pack, sf.devices), tuple,
+                reps=REPS)
         del p, c, m, t, b2
     torch.cuda.empty_cache()
     for shape in ("ror", "occupied"):
@@ -276,6 +306,11 @@ def child(root: str) -> dict:
             dt = cs.replay(torch, cfg, frames, None, "cuda", tmp + "/p",
                            clouds=cs.cloud_frames(frames))[1]
             res["planar_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+        res["sharded_mpts"] = None
+        if routed:
+            dt = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/s",
+                           n_devices=4, route=True)[1]
+            res["sharded_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
     return res
 
 
@@ -307,8 +342,8 @@ def main(argv) -> int:
         times = ", ".join(f"{k} {r[k]}" if r[k] is None
                           else f"{k} {r[k]:.4f}" for k in TIMED)
         print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f}, tsdf "
-              f"{r['tsdf_mpts']:.3f}, planar {r['planar_mpts']} Mpts/s "
-              f"({root})", flush=True)
+              f"{r['tsdf_mpts']:.3f}, planar {r['planar_mpts']}, sharded "
+              f"{r['sharded_mpts']} Mpts/s ({root})", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

@@ -147,11 +147,12 @@ def test_neighbor_count_bytes(Q, live, words):
 
 @pytest.mark.parametrize("wire,K,N,n,Bs,want", [
     # u16 depth + rgb565 a lane, the rays once, a count and a pose a frame;
-    # the (K,n,7,n*Bs) f32 send buffer out, padding included
+    # world and rgb f32 and present 1 B a column of the destinations'
+    # (n, K, n*Bs) lanes, padding included
     ("depth", 8, 307_200, 4, 38_400,
-     8 * 307_200 * 4 + 307_200 * 12 + 8 * 68 + 8 * 4 * 7 * 4 * 38_400 * 4),
+     8 * 307_200 * 4 + 307_200 * 12 + 8 * 68 + 4 * 8 * 4 * 38_400 * 25),
     # f32 points and rgb and a bool mask a lane, a pose a frame
-    ("planar", 1, 1000, 2, 256, 1000 * 25 + 64 + 2 * 7 * 2 * 256 * 4)])
+    ("planar", 1, 1000, 2, 256, 1000 * 25 + 64 + 2 * 1 * 2 * 256 * 25)])
 def test_route_pack_bytes(wire, K, N, n, Bs, want):
     b = bounds.route_pack(K, N, n, Bs, wire)
     assert b["bytes"] == want and b["ops"] == 30 * K * N

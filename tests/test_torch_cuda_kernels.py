@@ -680,36 +680,72 @@ def test_dep_stream_and_normal_fit_on_a_shard(shard_state, j):
     assert float((gn.normal - gq.normal).abs().max()) <= 1e-5
 
 
+def _bucket_loads(r):
+    """(n, K, n) kept lanes of each (destination, frame, source) bucket,
+    from ``present``."""
+    n, K, R = r.present.shape
+    return r.present.view(n, K, n, R // n).sum(-1)
+
+
 @pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("wire", ["depth", "planar-bool", "planar-count"])
-@pytest.mark.parametrize("betas", [None, (0.05,)])
-def test_route_pack_bit_exact(dev, n, wire, betas):
-    """B12 against its plain pair on K=4 batches: the send buffer bit for
-    bit, the budget, the drops and the largest bucket; with the default
-    tiers (lossless) and with a 128-lane budget (drops wherever a bucket
-    holds more)."""
+@pytest.mark.parametrize("budget", ["default", "drop", "exact", "odd", "k1"])
+def test_route_pack_bit_exact(dev, n, wire, budget):
+    """B12 against its plain pair on K=4 batches (K=1 with ``k1``): world,
+    rgb and present in the destinations' layout bit for bit, the budget,
+    the drops and the largest bucket; with the default tiers (lossless),
+    a 128-lane budget (``drop``: drops wherever a bucket holds more), a
+    lower tier equal to the largest bucket (``exact``: chosen, nothing
+    dropped) and a budget that is no multiple of 4 (``odd``: the fill's
+    scalar rows).  Lossless at K=4, some bucket loads are no multiple of
+    4 and put the fill's float4 edge inside a row."""
     from hifi_fusion_tpu_torch.parallel import routing
     from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
     sf = ShardedFusion(ROUTE_CFG, [dev] * n, route=True,
-                       route_betas=betas)
-    args = (ROUTE_CFG, n, sf.slab_w, sf.halo, sf.send_lanes_tiers)
+                       route_betas=(0.05,) if budget == "drop" else None)
     if wire == "depth":
         b = _batch(sf, 1)
         rays = sf.put_rays(RAYS)
-        n0 = kernels.LAUNCHES["route_pack"]
-        got = routing.route_pack_depth(*b, rays, *args)
         pc, rgb, mask = routing.depth_lanes(*b[:3], rays)
-        want = routing.route_pack_plain(pc, rgb, mask, b[3], *args)
+        lanes = (pc, rgb, mask, b[3])
+
+        def kern(k, args):
+            return routing.route_pack_depth(*(t[:k] for t in b), rays,
+                                            *args)
     else:
         (pts, rgb, mask, poses), _ = _planar_inputs(
             dev, 4, 4096, "f32", "f32", wire.split("-")[1], seed=n)
-        n0 = kernels.LAUNCHES["route_pack"]
-        got = routing.route_pack(pts, rgb, mask, poses, *args)
-        if mask.dtype != torch.bool:
-            mask = (torch.arange(4096, device=dev)[None, :]
-                    < mask[:, None])
-        want = routing.route_pack_plain(pts, rgb, mask, poses, *args)
+        lm = mask if mask.dtype == torch.bool else (
+            torch.arange(4096, device=dev)[None, :] < mask[:, None])
+        lanes = (pts, rgb, lm, poses)
+
+        def kern(k, args):
+            return routing.route_pack(*(t[:k] for t in (pts, rgb, mask,
+                                                         poses)), *args)
+    K = 1 if budget == "k1" else 4
+    tiers = sf.send_lanes_tiers
+    args = (ROUTE_CFG, n, sf.slab_w, sf.halo, tiers)
+    want = routing.route_pack_plain(*(t[:K] for t in lanes), *args)
+    mx = want.max_bucket
+    if budget == "exact":
+        tiers = (mx, mx + 128)
+    elif budget == "odd":
+        tiers = (mx + 1 if (mx + 1) % 4 else mx + 2,)
+    if tiers != sf.send_lanes_tiers:
+        args = (ROUTE_CFG, n, sf.slab_w, sf.halo, tiers)
+        want = routing.route_pack_plain(*(t[:K] for t in lanes), *args)
+    n0 = kernels.LAUNCHES["route_pack"]
+    got = kern(K, args)
+    torch.cuda.synchronize()
     assert kernels.LAUNCHES["route_pack"] == n0 + 1
-    assert _same_words(got[0], want[0])
-    assert got[1:] == want[1:]
-    assert got[3] > 0 and (got[2] > 0) == (got[3] > got[1])
+    for g, w in zip(got[:2], want[:2]):
+        assert _same_words(g, w)
+    assert torch.equal(got.present, want.present)
+    assert got.world.shape == (n, K, 3, n * got.send_lanes)
+    assert tuple(got[3:]) == tuple(want[3:])
+    assert got.max_bucket > 0
+    assert (got.n_dropped > 0) == (got.max_bucket > got.send_lanes)
+    if budget in ("exact", "odd"):
+        assert got.send_lanes == tiers[0] and got.n_dropped == 0
+    if K == 4 and budget != "drop":     # there every bucket fills 128
+        assert bool(((_bucket_loads(got) % 4) != 0).any())

@@ -10,7 +10,11 @@ the JAX package's (hifi_fusion_tpu/parallel/routing.py), on the CPU:
 * ``route_pack`` / ``route_pack_depth`` (kernel B12's wrapper, the plain
   pair on a CPU tensor) on K-frame batches of the planar and depth wires
   against JAX's stages run per frame and strided source block, with the
-  JAX sharded pipeline's tier rule;
+  JAX sharded pipeline's tier rule, their send buffers rearranged to the
+  destinations' layout (JAX ``exchange_batch``'s receive lanes of every
+  destination, stacked);
+* ``exchange_batch`` on one device: views of ``route_pack``'s buffers (no
+  copy), equal to the stack-and-slice of the send buffers it replaced;
 * the send-budget tiers equal to those ``ShardedFusion`` computes;
 * the narrow-slab refusal (as tests/test_routing.py:226).
 
@@ -148,6 +152,27 @@ def test_route_sort_and_pack_match_jax(jax_stages, n, case, Bs):
     assert (nd > 0) == (case == "drop")
 
 
+def _dest_major(send):
+    """(K, n, 7, n*Bs) send buffers of every frame and source -> (n, K,
+    7, n*Bs), destination j's lanes source-major: the lanes JAX
+    ``exchange_batch`` (routing.py:175-185) gives destination j."""
+    K, n, _, nb = send.shape
+    return send.reshape(K, n, 7, n, nb // n).transpose(3, 0, 2, 1, 4
+                                                       ).reshape(n, K, 7, nb)
+
+
+def _assert_routed(got, want):
+    """The port's ``Routed`` against JAX's (send, Bs, drop, max bucket):
+    world and rgb bit for bit, present where channel 6 is 1."""
+    recv = _dest_major(want[0])
+    for t, ch in ((got.world, slice(0, 3)), (got.rgb, slice(3, 6))):
+        np.testing.assert_array_equal(t.numpy().view(np.int32),
+                                      recv[:, :, ch].view(np.int32))
+    assert set(np.unique(recv[:, :, 6])) <= {0.0, 1.0}
+    np.testing.assert_array_equal(got.present.numpy(), recv[:, :, 6] == 1)
+    assert tuple(got[3:]) == want[1:]
+
+
 def _jax_batch(cam, rgb, mask, poses, n, tiers, stages):
     """JAX's stages per frame and strided source block, the tier rule of
     the JAX sharded pipeline (sharding.py:302-308, :334-336)."""
@@ -177,9 +202,7 @@ def test_route_pack_planar_batch(jax_stages, n, tiers):
                              CFG, n, W, HALO, tiers)
     want = _jax_batch(*map(jnp.asarray, (cam, rgb, mask, poses)), n, tiers,
                       jax_stages)
-    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
-                                  want[0].view(np.int32))
-    assert got[1:] == want[1:]
+    _assert_routed(got, want)
     # the count-prefix mask form equals the bool lanes it stands for
     counts = np.array([N, N // 2, 300], np.int32)
     lanes = np.arange(N)[None, :] < counts[:, None]
@@ -187,7 +210,8 @@ def test_route_pack_planar_batch(jax_stages, n, tiers):
                            CFG, n, W, HALO, tiers)
     b = routing.route_pack(*map(torch.from_numpy, (cam, rgb, lanes, poses)),
                            CFG, n, W, HALO, tiers)
-    assert torch.equal(a[0], b[0]) and a[1:] == b[1:]
+    assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+    assert a[3:] == b[3:]
 
 
 def test_route_pack_depth_batch(jax_stages):
@@ -222,9 +246,44 @@ def test_route_pack_depth_batch(jax_stages):
                                      send_lanes=Bs)))
         return stages[(n_, W_, Bs)]
     want = _jax_batch(p, c, m, jnp.asarray(poses), n, tiers, jstages)
-    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
-                                  want[0].view(np.int32))
-    assert got[1:] == want[1:] and got[3] > 0
+    _assert_routed(got, want)
+    assert got.max_bucket > 0
+
+
+@pytest.mark.parametrize("n,tiers", [(2, (256, 1024)), (4, (64,))])
+def test_exchange_batch_views(n, tiers):
+    """Destination j's lanes are the [j] views of ``route_pack``'s
+    buffers (same storage, no copy on one device), equal to the
+    stack-and-slice of the per-source send buffers that the exchange did
+    before the kernel wrote the destinations' layout."""
+    K, N = 2, 1024
+    fr = [_frame("halo", n, N, seed=40 + k + n) for k in range(K)]
+    cam, rgb, mask, poses = (torch.from_numpy(np.stack([f[i] for f in fr]))
+                             for i in range(4))
+    W = -(-XDIM // n)
+    r = routing.route_pack(cam, rgb, mask, poses, CFG, n, W, HALO, tiers)
+    Bs = r.send_lanes
+    send = torch.stack([torch.stack([routing.pack_send_plain(
+        routing.route_sort_plain(cam[k][:, s::n], rgb[k][:, s::n],
+                                 mask[k][s::n], poses[k], CFG, n, W, HALO),
+        n, Bs)[0] for s in range(n)]) for k in range(K)])
+    devices = shard_devices("cpu", n)
+    recv = routing.exchange_batch(r.world, r.rgb, r.present, devices)
+    assert len(recv) == n
+    for j, (w, c, p) in enumerate(recv):
+        for got, full in ((w, r.world), (c, r.rgb), (p, r.present)):
+            assert got.is_contiguous()
+            assert got.data_ptr() == full[j].data_ptr()
+            assert (got.untyped_storage().data_ptr()
+                    == full.untyped_storage().data_ptr())
+        old = torch.stack([send[:, s, :, j * Bs:(j + 1) * Bs]
+                           for s in range(n)], dim=2).reshape(K, 7, n * Bs)
+        assert torch.equal(w.view(torch.int32),
+                           old[:, 0:3].contiguous().view(torch.int32))
+        assert torch.equal(c.view(torch.int32),
+                           old[:, 3:6].contiguous().view(torch.int32))
+        assert torch.equal(p, old[:, 6] > 0.5)
+        assert int(p.sum()) > 0
 
 
 @pytest.mark.parametrize("N,n,betas", [(4096, 2, None), (4096, 4, None),

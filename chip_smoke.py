@@ -45,14 +45,27 @@ and prints no result line):
    shards, depth wire and the session's planar wire) and at phase 15's
    (the launch-file extent, 8 shards, depth wire), the host read of its
    budget inside the time, and its device ms split by pass (count, scan
-   and budget with the budget's copy; pack; fill);
+   and budget with the budget's copy; pack; fill); B3
+   (``integrate.aggregate_lanes``, with K2) on the third K=8 batch's
+   sorted lanes into the grid carried through two batches and refines,
+   against its plain version: every integer field, the integer-valued
+   sums and viewpoints by cell id (K2 may pick other slots), the buffer
+   in order and K3's sorted lanes exactly; B6 (``refine.refine_lines``)
+   and B7 (``refine.buffer_replay``) on the first refine of phase 4's
+   sweep: the dependant lists in order, the counts and the links exactly,
+   then B7's hit counts exactly and sums within ``checks.RTOL`` of the
+   terms; each with its counts, bound and share;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
    four export variants; checks overflow counters, voxel count, unit
    normals, the PCD and CSV files, each variant's rows against its
-   ``io/downloads`` view, and that K1-K4 launched; prints the session's
-   stage timers;
+   ``io/downloads`` view, and that K1-K4, B3, B6 and B7 launched; prints
+   the session's stage timers; then one K=8 integrate dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no synchronizing call)
+   and the refine after it under ``"warn"`` (exactly one: its count
+   read), and the replay again under ``torch.profiler`` (CUDA activity):
+   the seconds the card was busy over the window and the idle share;
 5. reduced sweeps through the port on the card and through its plain path
    on the CPU: the fusion path compared by cell id with the benchmark's
    structural gates, the TSDF path by cell id (grid sums exact, extract
@@ -193,20 +206,28 @@ KERNELS = {
                        "hifi_fusion_tpu/ops/queries.py:41"),
     "route_pack": ("hifi_fusion_tpu_torch/csrc/route_pack.cu",
                    "hifi_fusion_tpu/parallel/routing.py:93"),
+    "integrate_lanes": ("hifi_fusion_tpu_torch/csrc/integrate_lanes.cu",
+                        "hifi_fusion_tpu/ops/integrate.py:339"),
+    "refine_lines": ("hifi_fusion_tpu_torch/csrc/refine_lines.cu",
+                     "hifi_fusion_tpu/ops/refine.py:262"),
+    "buffer_replay": ("hifi_fusion_tpu_torch/csrc/buffer_replay.cu",
+                      "hifi_fusion_tpu/ops/refine.py:341"),
 }
+# the kernels of the fusion family's integrate and refine, on every path
+# that fuses (B3, B6, B7 around K2, K3, K4)
+FUSION_STEPS = ("hash_insert", "integrate_lanes", "dep_stream", "normal_fit",
+                "refine_lines", "buffer_replay")
 # the kernels each main path must launch
-FUSION_PATH = ("depth_frontend", "hash_insert", "dep_stream", "normal_fit")
-PLANAR_PATH = ("planar_frontend", "hash_insert", "dep_stream", "normal_fit")
+FUSION_PATH = ("depth_frontend",) + FUSION_STEPS
+PLANAR_PATH = ("planar_frontend",) + FUSION_STEPS
 TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
 TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "hash_insert",
                     "tsdf_surface")
 QUERY_PATH = ("neighbor_count",)
 # the routed sharded path: B12 routes, K5 takes the routed world points
-ROUTED_PATH = ("route_pack", "planar_frontend", "hash_insert", "dep_stream",
-               "normal_fit")
+ROUTED_PATH = ("route_pack", "planar_frontend") + FUSION_STEPS
 CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
-            "hash_insert", "dep_stream", "normal_fit", "segscan",
-            "tsdf_surface")
+            "segscan", "tsdf_surface") + FUSION_STEPS
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
 # tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
@@ -318,15 +339,18 @@ def max_err(pairs) -> float:
 
 
 def captured_inserts(hashing, fn) -> list:
-    """Run ``fn()`` and return ``(table, ids)`` for every
+    """Run ``fn()`` and return ``(table, ids, n_live)`` for every
     ``hashing.lookup_or_insert`` call it makes: a copy of the key table as
-    it stood before the call, and the ids, so that K2 is held and timed on
+    it stood before the call, the ids and the caller's device-side live
+    count (None where it passes none), so that K2 is held and timed on
     exactly the inputs a main path gives it."""
     calls = []
     real = hashing.lookup_or_insert
 
     def spy(key_table, ids, *args, **kw):
-        calls.append((key_table.clone(), ids.clone()))
+        n_live = kw.get("n_live")
+        calls.append((key_table.clone(), ids.clone(),
+                      None if n_live is None else n_live.clone()))
         return real(key_table, ids, *args, **kw)
 
     hashing.lookup_or_insert = spy
@@ -358,16 +382,23 @@ def cold(torch, *args):
     return args
 
 
+def carried_state(pipe, batch, rays):
+    """The fusion bench grid after two K=8 batches and a refine after
+    each."""
+    grid = pipe.init()
+    for i in range(2):
+        pipe.step_batch_depth(grid, *batch(i), rays)
+        pipe.refine(grid)
+    return grid
+
+
 def fusion_state(torch, hashing, pipe, batch, rays):
     """The fusion bench grid after two K=8 batches and a refine after each,
     then the third batch integrated, with K2's call captured (shape
     ``integrate``), and the refine after it run on a copy, with K2's line
     cell call captured (shape ``refine``).  Returns the grid after the
-    third batch and ``{shape: (table, ids)}``."""
-    grid = pipe.init()
-    for i in range(2):
-        pipe.step_batch_depth(grid, *batch(i), rays)
-        pipe.refine(grid)
+    third batch and ``{shape: (table, ids, n_live)}``."""
+    grid = carried_state(pipe, batch, rays)
     (a,) = captured_inserts(hashing, lambda: pipe.step_batch_depth(
         grid, *batch(2), rays))
     (b,) = captured_inserts(hashing, lambda: pipe.refine(copy_grid(grid)))
@@ -385,11 +416,13 @@ def tsdf_state(hashing, pipe, batch, rays):
     return grid, c
 
 
-def check_insert(torch, table, ids, max_probes, shape) -> dict:
+def check_insert(torch, table, ids, n_live, max_probes, shape) -> dict:
     """K2 against its plain version on one captured call: both tables must
     hold the same id set, every id at its slot, no failures.  Times the
-    form the callers use (the failures added into their counter).
-    Returns the ``timed`` entry with the shape's counts."""
+    form the callers use (the failures added into their counter, the live
+    count where the caller passes one).  The bound counts the ids alone;
+    the lanes of the budget-sized array are logged beside it.  Returns the
+    ``timed`` entry with the shape's counts."""
     from hifi_fusion_tpu_torch import bounds
     from hifi_fusion_tpu_torch.ops import hashing
     C = table.numel()
@@ -399,13 +432,20 @@ def check_insert(torch, table, ids, max_probes, shape) -> dict:
 
     def insert(fn):
         key, nf = table.clone(), counter()
-        slot = fn(key, ids, max_probes, C, nf)
+        slot = fn(key, ids, max_probes, C, nf, n_live)
         return key, slot, int(nf)
 
     kk, sk, fk = insert(hashing.lookup_or_insert)
     kp, sp, fp = insert(hashing.insert_plain)
-    bad = int((kk[sk.long()] != ids).sum()) + int((kp[sp.long()]
-                                                    != ids).sum())
+    # the lanes before the live count hold the ids; among them INVALID_ID
+    # lanes (the refine's non-start line lanes) get -1; the kernel leaves
+    # the lanes past the count unset
+    n = ids.numel() if n_live is None else int(n_live)
+    head = torch.arange(ids.numel(), device=ids.device) < n
+    live = head & (ids != hashing.INVALID_ID)
+    bad = sum(int((k[s[live].long()] != ids[live]).sum())
+              + int((s[head & ~live] != -1).sum())
+              for k, s in ((kk, sk), (kp, sp)))
     bad += int((torch.sort(kk).values != torch.sort(kp).values).sum())
     if bad or fk or fp:
         raise AssertionError(f"hash_insert {shape}: {bad} id mismatches, "
@@ -413,15 +453,19 @@ def check_insert(torch, table, ids, max_probes, shape) -> dict:
     counts = bounds.hash_insert_counts(table, kk)
     ms, pms = time_pair(
         torch, hashing.lookup_or_insert, hashing.insert_plain,
-        lambda: cold(torch, table.clone(), ids, max_probes, C, counter()))
+        lambda: cold(torch, table.clone(), ids, max_probes, C, counter(),
+                     n_live))
     warm = device_ms(torch, hashing.lookup_or_insert, lambda: (
-        table.clone(), ids, max_probes, C, counter()))
-    log(f"phase 3: hash_insert {shape}: n {ids.numel()}, n_new "
+        table.clone(), ids, max_probes, C, counter(), n_live))
+    log(f"phase 3: hash_insert {shape}: n {ids.numel()} lanes, "
+        f"live count {'none' if n_live is None else n}, "
+        f"{int(live.sum())} ids, n_new "
         f"{counts['n_new']}, load {counts['load_before']:.4f} -> "
         f"{counts['load_after']:.4f} of {C} slots; {warm:.4f} ms with the "
         f"table left in L2 by its copy")
     return {**timed(float(bad), ms, pms, bounds.hash_insert(
-        ids.numel(), counts["n_new"])), "n": int(ids.numel()), **counts,
+        int(live.sum()), counts["n_new"])),
+        "n": int(live.sum()), "lanes": int(ids.numel()), **counts,
         "warm_ms": warm}
 
 
@@ -458,9 +502,9 @@ def check_kernels(torch, cfg, frames, rays, dev):
 
     # K2 at the integrate and refine shapes of the third batch
     grid, calls = fusion_state(torch, hashing, pipe, batch, rays)
-    for shape, (table, ids) in calls.items():
+    for shape, (table, ids, n_live) in calls.items():
         res[f"hash_insert/{shape}"] = check_insert(
-            torch, table, ids, cfg.max_probes, shape)
+            torch, table, ids, n_live, cfg.max_probes, shape)
 
     # K3: the third batch's points through the grid's dependants (the
     # integrate streams them after the per-cell sums, which K3 does not
@@ -530,6 +574,191 @@ def check_kernels(torch, cfg, frames, rays, dev):
     res["normal_fit"] = {**timed(err, ms, pms, bounds.normal_fit(
         cand.numel(), int(okk.sum()), words)), "U": int(cand.numel()),
         "n_gated": int(okk.sum()), "words": words, "warm_ms": warm}
+    del grid, calls, gk, gp
+    res["integrate_lanes"] = check_integrate_lanes(torch, cfg, pipe, batch,
+                                                   rays)
+    res.update(check_refine_kernels(torch, cfg, pipe, batch, rays))
+    return res
+
+
+def with_copies(grid, names):
+    """``grid`` with the fields ``names`` cloned (the ones a call writes)."""
+    return dataclasses.replace(grid, **{n: getattr(grid, n).clone()
+                                        for n in names})
+
+
+def cells_at(torch, grid, slots):
+    """The cell id at each slot, -1 where the slot is -1."""
+    return torch.where(slots >= 0, grid.key[slots.clamp(min=0).long()], -1)
+
+
+def grid_problems(cfg, got, want) -> list:
+    """``checks.grid_problems`` of two grids on the card."""
+    from hifi_fusion_tpu_torch import checks, convert
+    return checks.grid_problems(convert.grid_to_numpy(got),
+                                convert.grid_to_numpy(want), cfg)
+
+
+# the fields B3 (with K2) and B6 (with K2) write
+B3_WRITES = ("key", "n_pts", "rgb_sum", "viewpoint", "occ_bits", "buf_pts",
+             "buf_slot", "buf_count", "overflow_active", "overflow_probe",
+             "overflow_buf")
+B6_WRITES = ("key", "dep", "dep_count", "overflow_dep", "overflow_probe")
+
+
+def kernel_split(torch, fn, setup) -> dict:
+    """Device ms by kernel name of one ``fn(*setup())`` call, from a
+    ``torch.profiler`` trace (CUDA activity; library kernels and copies
+    included), after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*setup())
+    args = setup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    out = {}
+    for e in trace.get("traceEvents", ()):
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            name = e["name"].split("(")[0].split("<")[0][:48]
+            out[name] = out.get(name, 0.0) + e["dur"] / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def check_integrate_lanes(torch, cfg, pipe, batch, rays) -> dict:
+    """Phase 3, B3: the third K=8 batch's sorted lanes into the grid
+    carried through two batches and two refines, against the plain
+    version: every integer field, the integer-valued sums and the
+    viewpoints by cell id, the buffer in order, and the sorted points and
+    cells K3 takes.  Returns the ``timed`` entry with the call's counts."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.ops import integrate
+    grid = carried_state(pipe, batch, rays)
+    b = batch(2)
+    K, N = b[0].shape
+    world, ids, rgb = integrate.depth_frontend(*b, rays, cfg)
+    sid, order = torch.sort(ids, stable=True)
+    NA = min(K * cfg.max_active_points, K * N)
+
+    def setup():
+        return (with_copies(grid, B3_WRITES), sid, order, world, rgb, b[3],
+                N, NA, cfg)
+
+    gk, gp = setup()[0], setup()[0]
+    pk, sk = integrate.aggregate_lanes(gk, *setup()[1:])
+    pp, sp = integrate.aggregate_lanes_plain(gp, *setup()[1:])
+    torch.cuda.synchronize()
+    problems = grid_problems(cfg, gk, gp)
+    if not bits_equal(torch, pk, pp):
+        problems.append("sorted points differ")
+    if not torch.equal(cells_at(torch, gk, sk), cells_at(torch, gp, sp)):
+        problems.append("sorted lanes' cells differ")
+    if problems:
+        raise AssertionError(f"integrate_lanes: {problems}")
+    v = sid[:NA]
+    v = v[v != integrate.INVALID_ID]
+    counts = {
+        "NA": NA, "n_sv": int(v.numel()),
+        "U": int(torch.unique_consecutive(v).numel()),
+        "n_new": int(((grid.key < 0) & (gk.key >= 0)).sum()),
+        "n_first": int(((grid.n_pts == 0) & (gk.n_pts > 0)).sum()),
+        "n_words": int(torch.unique_consecutive(v >> 5).numel()),
+        "n_want": int(gk.buf_count - grid.buf_count)}
+    log(f"phase 3: integrate_lanes: {counts}; the grid, buffer order and "
+        f"K3's lanes exact against the plain version")
+    ms, pms = time_pair(torch, integrate.aggregate_lanes,
+                        integrate.aggregate_lanes_plain,
+                        lambda: cold(torch, *setup()))
+    split = kernel_split(torch, integrate.aggregate_lanes, setup)
+    log(f"phase 3: integrate_lanes by kernel, ms: {json.dumps(split)}")
+    return {**timed(0.0, ms, pms, bounds.integrate_lanes(
+        store_color=cfg.store_color, **counts)), **counts,
+        "passes_ms": split}
+
+
+def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
+    """Phase 3, B6 and B7 on the first refine of phase 4's sweep (after the
+    first K=8 batch): B6 against its plain version (the grid by cell id
+    with the dependant lists in order, the links as (cell, candidate)
+    pairs), then B7 on B6's links against its plain version (hit counts
+    exact, sums under ``checks.cyl_stats_error``).  Returns both
+    ``timed`` entries with their counts."""
+    from hifi_fusion_tpu_torch import bounds, checks
+    from hifi_fusion_tpu_torch.ops import refine
+    grid = pipe.init()
+    pipe.step_batch_depth(grid, *batch(0), rays)
+    cand = torch.nonzero((grid.n_pts > 0) & ~grid.normal_found
+                         ).squeeze(1).to(torch.int32)
+    nvec, gated = refine.normal_fit(
+        cand, with_copies(grid, ("normal", "normal_found")), cfg)
+
+    def setup6():
+        return cand, nvec, gated, with_copies(grid, B6_WRITES), cfg
+
+    gk, gp = setup6()[3], setup6()[3]
+    lk = refine.refine_lines(cand, nvec, gated, gk, cfg)
+    lp = refine.refine_lines_plain(cand, nvec, gated, gp, cfg)
+    torch.cuda.synchronize()
+    problems = grid_problems(cfg, gk, gp)
+
+    def links(g, ls, lu):
+        pairs = (cells_at(torch, g, ls).long() << 32) | lu.long()
+        return torch.sort(pairs).values
+
+    if not torch.equal(links(gk, *lk), links(gp, *lp)):
+        problems.append("links differ")
+    n_written = int((lk[0] >= 0).sum())
+    if problems or n_written == 0:
+        raise AssertionError(f"refine_lines: {problems}, {n_written} links")
+    lids, valid = refine.line_cells(cand, nvec, gated, grid, cfg)
+    c6 = {"U": int(cand.numel()), "n_gated": int(gated.sum()),
+          "L": cfg.n_line,
+          "n_cells": int(torch.unique(lids[valid]).numel()),
+          "n_new": int(((grid.key < 0) & (gk.key >= 0)).sum()),
+          "n_written": n_written}
+    log(f"phase 3: refine_lines: {c6}, overflow_dep "
+        f"{int(gk.overflow_dep)}; dependant lists in order and links "
+        f"exact against the plain version")
+    ms, pms = time_pair(torch, refine.refine_lines, refine.refine_lines_plain,
+                        lambda: cold(torch, *setup6()))
+    split = kernel_split(torch, refine.refine_lines, setup6)
+    log(f"phase 3: refine_lines by kernel, ms: {json.dumps(split)}")
+    res = {"refine_lines": {**timed(0.0, ms, pms, bounds.refine_lines(**c6)),
+                            **c6, "passes_ms": split}}
+
+    bc = int(gk.buf_count)
+    bslot, border = torch.sort(gk.buf_slot[:bc], stable=True)
+    bpts = gk.buf_pts[:, :bc][:, border].contiguous()
+
+    def setup7():
+        return (*lk, cand, nvec, bslot, bpts, with_copies(gk, ("cyl_stats",)),
+                cfg)
+
+    rk, rp = setup7()[-2], setup7()[-2]
+    refine.buffer_replay(*lk, cand, nvec, bslot, bpts, rk, cfg)
+    refine.buffer_replay_plain(*lk, cand, nvec, bslot, bpts, rp, cfg)
+    torch.cuda.synchronize()
+    ok, err = checks.cyl_stats_error(rk.cyl_stats.cpu().numpy(),
+                                     rp.cyl_stats.cpu().numpy(),
+                                     cfg.cylinder_radius)
+    added = rk.cyl_stats.view(-1, 5)[:, 4] - gk.cyl_stats.view(-1, 5)[:, 4]
+    if not ok or float(added.sum()) <= 0:
+        raise AssertionError(f"buffer_replay: ok={ok} max err {err}, "
+                             f"{float(added.sum())} hits")
+    c7 = bounds.buffer_replay_counts(lk[0], bslot, added)
+    log(f"phase 3: buffer_replay: {c7}, {float(added.sum()):.0f} hits, "
+        f"buffer {bc} lanes; hit counts exact, sums within rtol "
+        f"{checks.RTOL} of the terms")
+    ms, pms = time_pair(torch, refine.buffer_replay,
+                        refine.buffer_replay_plain,
+                        lambda: cold(torch, *setup7()))
+    res["buffer_replay"] = {**timed(err, ms, pms, bounds.buffer_replay(
+        **c7)), **c7}
     return res
 
 
@@ -624,7 +853,7 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     # T3, bit-exact, at two shapes: the grid after two batches, and the
     # final grid of the replay (every batch of the sweep), the one its
     # real call in process() meets
-    grid, (table, ids) = tsdf_state(hashing, pipe, batch, rays)
+    grid, (table, ids, n_live) = tsdf_state(hashing, pipe, batch, rays)
     final = pipe.init()
     for i in range(len(frames) // K):
         pipe.step_batch_depth(final, *batch(i), rays)
@@ -635,7 +864,7 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
 
     # K2 at the TSDF batch shape: the third batch's distinct cells into
     # the 2^24-slot table after two batches
-    res["hash_insert/tsdf"] = check_insert(torch, table, ids,
+    res["hash_insert/tsdf"] = check_insert(torch, table, ids, n_live,
                                            tcfg.base.max_probes, "tsdf")
     return res
 
@@ -926,6 +1155,98 @@ def replay(torch, cfg, frames, rays_np, device, out_dir, fill_wait=10.0,
                              f"{m['frames_integrated']}/{len(frames)} "
                              f"frames, {m['dispatch_errors']} errors")
     return r, dt, t_proc, m
+
+
+def sync_reads(torch, cfg, frames, rays_np) -> tuple:
+    """The synchronizing calls of one K=8 integrate dispatch, run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any raises), and of the
+    refine after it, run under ``"warn"`` and counted: ``(0, n)``; raises
+    unless n is 1 (the refine's one read of its counts).  The inputs are
+    put on the card first, as the session does before it dispatches."""
+    import warnings
+    from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
+    pipe = FusionPipeline(cfg, "cuda")
+    fs = frames[:8]
+    b = (pipe.put(np.stack([f.depth_q for f in fs])),
+         pipe.put(np.stack([f.rgb565 for f in fs])),
+         pipe.put(np.full((8,), fs[0].count, np.int32)),
+         pipe.put(np.stack([f.pose for f in fs])), pipe.put(rays_np))
+    grid = pipe.init()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step_batch_depth(grid, *b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipe.refine(grid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "synchronizing" in str(w.message)]
+    if len(syncs) != 1 or int(grid.normal_found.sum()) == 0:
+        raise AssertionError(f"the refine made {len(syncs)} synchronizing "
+                             f"calls: {syncs}")
+    return 0, len(syncs)
+
+
+def busy_intervals(trace: dict) -> list:
+    """Merged [start, end) microsecond intervals of the device's kernels,
+    copies and fills in a ``torch.profiler`` chrome trace."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"])
+                   for e in trace.get("traceEvents", ())
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def profiled_replay(torch, cfg, frames, rays_np) -> dict:
+    """The fusion replay (push to the end of ``drain()``) under
+    ``torch.profiler`` with CUDA activity: the window's host seconds, the
+    seconds the card ran a kernel, a copy or a fill (the union of their
+    spans), the busy share of the window and of the span from the first
+    device event to the last, and the session's per-dispatch
+    ``device_step`` and ``refine`` ms.  The profiler's own host cost
+    lengthens the window, so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    from hifi_fusion_tpu_torch.runtime.session import FusionSession
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        with FusionSession(cfg, "cuda", output_dir=tmp,
+                           batch_fill_wait=10.0) as s:
+            s.start()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                for f in frames:
+                    s.push_depth_frame(f.depth_q, f.rgb565, f.pose,
+                                       rays=rays_np)
+                if not s.drain(900):
+                    raise AssertionError("session did not drain")
+                dt = time.monotonic() - t0
+            timers = s.timers.report()
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    spans = busy_intervals(trace)
+    busy = sum(b - a for a, b in spans) / 1e6
+    span = (spans[-1][1] - spans[0][0]) / 1e6 if spans else 0.0
+    out = {"window_s": dt, "busy_s": busy, "n_spans": len(spans),
+           "busy_share": busy / dt, "device_span_s": span,
+           "busy_share_of_span": busy / span if span else 0.0}
+    for stage in ("device_step", "refine"):
+        t = timers.get(stage, {})
+        out[f"{stage}_ms"] = (1e3 * t["total_s"] / t["count"]
+                              if t.get("count") else None)
+    return out
 
 
 def check_outputs(r) -> int:
@@ -2027,6 +2348,14 @@ def main() -> int:
         f"{rows}; launches {fusion_launches}; "
         f"{json.dumps(r['grid_metrics'])}")
     log(f"phase 4: stage timers {json.dumps(m['stage_timers'])}")
+    n_int, n_ref = sync_reads(torch, cfg, frames, rays_np)
+    log(f"phase 4: synchronizing calls: an integrate dispatch {n_int} "
+        f"(under sync_debug_mode 'error'), a refine {n_ref} (under "
+        f"'warn': its count read)")
+    idle = profiled_replay(torch, cfg, frames, rays_np)
+    log(f"phase 4: the replay under torch.profiler ({card}): "
+        f"{json.dumps(idle)}; idle share of the window "
+        f"{1.0 - idle['busy_share']:.4f}")
 
     # -- phase 5 -------------------------------------------------------
     srays = camera_rays(128, 96, fx=160.0, fy=160.0)

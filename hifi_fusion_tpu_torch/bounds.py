@@ -61,7 +61,9 @@ def planar_frontend(K: int, N: int, point_bytes: int = 12,
 def hash_insert(U: int, n_new: int) -> dict:
     """K2 on U distinct ids of which ``n_new`` were not in the table: each
     id read, one table word read, the new ids' words written, U slots and
-    the failure count written."""
+    the failure count written.  Lanes of a budget-sized array past the ids
+    (a live count on the card, or INVALID_ID lanes) are not the function's
+    work and are not counted; callers report them beside the bound."""
     return bound(U * 4 + U * 4 + n_new * 4 + U * 4 + 4)
 
 
@@ -195,3 +197,63 @@ def route_pack(K: int, N: int, n: int, Bs: int, wire: str = "depth",
         wire_bytes = px * (24 + mask_bytes) + K * (
             64 + (4 if mask_bytes == 0 else 0))
     return bound(wire_bytes + K * n * n * Bs * 25, 30 * px)
+
+
+def integrate_lanes(NA: int, n_sv: int, U: int, n_new: int, n_first: int,
+                    n_words: int, n_want: int,
+                    store_color: bool = True) -> dict:
+    """B3 on the first NA sorted lanes of a batch, ``n_sv`` of them valid,
+    in U distinct cells: each lane's sorted id and i64 order read (12 B);
+    each valid lane's world point (and colour) gathered (12 B, 24 B with
+    colour); the sorted points and slots K3 takes written (16 B a lane);
+    per cell its key probe, n_pts read and written, normal_found, and
+    with colour rgb_sum read and written (13 B, 37 B); a new cell's key
+    (4 B), a first occupancy's viewpoint (12 B), each distinct bitmap
+    word read and written (8 B), each appended lane's point and slot
+    (16 B).  One f32 add a valid lane and channel (the count, and Σrgb
+    with colour)."""
+    ch = 4 if store_color else 1
+    per_valid = 24 if store_color else 12
+    per_cell = 37 if store_color else 13
+    return bound(NA * 28 + n_sv * per_valid + U * per_cell + n_new * 4
+                 + n_first * 12 + n_words * 8 + n_want * 16, ch * n_sv)
+
+
+def refine_lines(U: int, n_gated: int, L: int, n_cells: int, n_new: int,
+                 n_written: int) -> dict:
+    """B6 on U candidates with L line steps: each candidate's slot, key,
+    normal and gate read (21 B); each of the L*U lanes' link written
+    (line slot and candidate, 8 B); per distinct line cell its key probe
+    and dep_count read and written (12 B), a new cell's key (4 B); each
+    written link's owner word (4 B).  ~10 f32 operations a line point of
+    a gated candidate (the point, its floors and its bbox test)."""
+    return bound(U * 21 + L * U * 8 + n_cells * 12 + n_new * 4
+                 + n_written * 4, 10 * L * n_gated)
+
+
+def buffer_replay(P: int, n_links: int, n_points: int, n_pairs: int,
+                  n_hit_owners: int) -> dict:
+    """B7 on P link lanes (line slot and candidate, 8 B each) of which
+    ``n_links`` hold a written link: per link its owner's slot, key and
+    normal (20 B); each buffered point of a replayed cell read once, with
+    its slot (16 B); per owner with a hit its 5 cyl_stats sums read and
+    written (40 B).  ~20 f32 operations per (link, point) pair
+    (``n_pairs``) for the cylinder gate and the sums."""
+    return bound(P * 8 + n_links * 20 + n_points * 16 + n_hit_owners * 40,
+                 20 * n_pairs)
+
+
+def buffer_replay_counts(ls: torch.Tensor, bslot: torch.Tensor,
+                         hits_added: torch.Tensor) -> dict:
+    """The counts of ``buffer_replay`` for its link slots ``ls`` (-1 = no
+    link), the slot-sorted buffer ``bslot`` and the (C,) hits the call
+    added to each owner."""
+    s = ls[ls >= 0]
+    first = torch.searchsorted(bslot, s)
+    run = torch.searchsorted(bslot, s, right=True) - first
+    cells = torch.unique(s)
+    cfirst = torch.searchsorted(bslot, cells)
+    crun = torch.searchsorted(bslot, cells, right=True) - cfirst
+    return {"P": int(ls.numel()), "n_links": int(s.numel()),
+            "n_points": int(crun.sum()), "n_pairs": int(run.sum()),
+            "n_hit_owners": int((hits_added > 0).sum())}

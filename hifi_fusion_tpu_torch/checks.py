@@ -15,7 +15,10 @@ Tolerances and their reasons:
   they are, each plus hits × the scale of one term's operands (the
   cylinder radius R, or R²).
 * grids compared across packages (``by_cell``): the two packages may put
-  one cell in different hash slots, so every field is keyed by cell id.
+  one cell in different hash slots, so every field is keyed by cell id;
+  a kernel held to its plain version (``grid_problems``) is compared the
+  same way, K2's CAS race being free to pick other slots, with the
+  dependant lists and the buffer also in order.
 * extract parity between two runs (``parity_gates``): the structural gates
   of the JAX package's benchmark parity check (bench.py:723-728), which
   tolerate borderline single-point gate flips but not mass drops.
@@ -122,6 +125,59 @@ def by_cell(fields: dict, config) -> dict:
                  "reclaimed", "frames"):
         out[name] = int(fields[name])
     return out
+
+
+def ordered_rows(fields: dict, config) -> dict:
+    """The order-carrying parts of a grid (numpy fields) keyed by cell id:
+    each cell's dependant owners as cell ids in list order (-1 padding),
+    in ascending cell-id order, and the live buffer as (cell id, x, y, z)
+    rows in buffer order."""
+    C, D = config.capacity, config.max_dependants
+    key = np.asarray(fields["key"])[:C]
+    slots = np.nonzero(key >= 0)[0]
+    slots = slots[np.argsort(key[slots], kind="stable")]
+    dep = np.asarray(fields["dep"])[:D * C].reshape(C, D)[slots]
+    nb = int(fields["buf_count"])
+    bslot = np.asarray(fields["buf_slot"])[:nb]
+    bpts = np.asarray(fields["buf_pts"])[:, :nb]
+    return {"dep": np.where(dep >= 0, key[np.maximum(dep, 0)], -1),
+            "buffer": np.stack([key[bslot].astype(np.float64), bpts[0],
+                                bpts[1], bpts[2]], axis=1)}
+
+
+def grid_problems(a: dict, b: dict, config, normal_tol: float = 0.0) -> list:
+    """Problems (empty when none) between two grids of the port (numpy
+    fields), ``b`` the reference, compared by cell id as a kernel is held
+    to its plain version: the cell set, every integer field and counter,
+    the occupancy bitmap, the integer-valued rgb and point sums, the
+    viewpoints and the dependant lists in order and the buffer in order,
+    exactly; normals within ``normal_tol``; cylinder statistics hits
+    exactly and sums under ``cyl_stats_error``."""
+    ga, gb = by_cell(a, config), by_cell(b, config)
+    if not np.array_equal(ga["cell"], gb["cell"]):
+        return [f"cell sets differ: {ga['cell'].size} vs "
+                f"{gb['cell'].size}, sym_diff "
+                f"{np.setxor1d(ga['cell'], gb['cell']).size}"]
+    problems = [f"{k}: {ga[k]} != {gb[k]}" for k in
+                ("buf_count", "overflow_probe", "overflow_buf",
+                 "overflow_dep", "overflow_refine", "overflow_active",
+                 "reclaimed", "frames") if ga[k] != gb[k]]
+    for f in ("n_pts", "normal_found", "dep_count", "viewpoint", "rgb_sum",
+              "occ_bits"):
+        if not np.array_equal(ga[f], gb[f]):
+            problems.append(f"{f} differs")
+    oa, ob = ordered_rows(a, config), ordered_rows(b, config)
+    for f in ("dep", "buffer"):
+        if oa[f].shape != ob[f].shape or not np.array_equal(oa[f], ob[f]):
+            problems.append(f"{f} differs in order")
+    err = float(np.abs(ga["normal"] - gb["normal"]).max(initial=0.0))
+    if err > normal_tol:
+        problems.append(f"normals differ by {err:.3g}")
+    ok, err = cyl_stats_error(ga["cyl_stats"], gb["cyl_stats"],
+                              config.cylinder_radius)
+    if not ok:
+        problems.append(f"cyl_stats differ (max abs err {err:.3g})")
+    return problems
 
 
 SEGSCAN_PATTERNS = ("long_runs", "empty_blocks", "late_first", "ragged_tail",

@@ -67,6 +67,27 @@ __device__ __forceinline__ void center_of_id(const Geo& g, int id,
                          g.origin[a]);
 }
 
+// The cylinder gate of kernels K3 (dep_stream.cu) and B7
+// (buffer_replay.cu): point p against the cylinder of an owner with center
+// c and unit normal nv, in the operation order of the plain versions
+// (ops/integrate.py cylinder_add) and the JAX package: q = p - c, t =
+// (q0 n0 + q1 n1) + q2 n2, r = q - t n, d = sqrt((r0^2 + r1^2) + r2^2),
+// each step rounded on its own; returns d < radius with t and d.
+__device__ __forceinline__ bool cylinder_hit(const float* p, const float* c,
+                                             const float* nv, float radius,
+                                             float& t, float& d) {
+    float q[3];
+    for (int a = 0; a < 3; ++a) q[a] = __fsub_rn(p[a], c[a]);
+    t = __fadd_rn(__fadd_rn(__fmul_rn(q[0], nv[0]), __fmul_rn(q[1], nv[1])),
+                  __fmul_rn(q[2], nv[2]));
+    float r[3];
+    for (int a = 0; a < 3; ++a) r[a] = __fsub_rn(q[a], __fmul_rn(t, nv[a]));
+    d = __fsqrt_rn(__fadd_rn(
+        __fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
+        __fmul_rn(r[2], r[2])));
+    return d < radius;
+}
+
 // The frontend arithmetic shared by kernels K1 (depth_frontend.cu), K5
 // (planar_frontend.cu) and B12 (route_pack.cu), so that routed and
 // replicated ingests agree bit for bit on which points survive.
@@ -148,6 +169,10 @@ __device__ __forceinline__ uint32_t z_window_mask(const Geo& g, int cz,
     const int zhi = min(2 * k, g.dims[2] - 1 - cz + k);
     return zhi < zlo ? 0u : (((2u << zhi) - 1u) & ~((1u << zlo) - 1u));
 }
+
+// the cell id of an invalid lane or an empty id lane (INT32_MAX), as the
+// Python side's INVALID_ID
+constexpr int INVALID_ID = 0x7fffffff;
 
 static inline int grid_blocks(long n, int threads) {
     long b = (n + threads - 1) / threads;

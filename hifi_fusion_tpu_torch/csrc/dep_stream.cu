@@ -32,8 +32,9 @@
 // each lane tests its point with the same gate as the plain version,
 // center = fma(res, coord + 0.5, origin) from the owner's key, q = p - c,
 // t = q.n, r = q - t*n, d = |r| in the JAX operation order with
-// round-to-nearest intrinsics, so d < cylinder_radius decides exactly as
-// the plain version does; a segmented shuffle sum gathers [t, t^2, d, d^2]
+// round-to-nearest intrinsics (common.cuh cylinder_hit, shared with the
+// refine's replay B7), so d < cylinder_radius decides exactly as the
+// plain version does; a segmented shuffle sum gathers [t, t^2, d, d^2]
 // at the group's first lane, a ballot counts the hits, and that lane
 // issues the 5 atomicAdds: one set per (cell, owner) with a hit.  The next
 // window starts at the last run that did not end; a run longer than the
@@ -60,23 +61,6 @@ __device__ __forceinline__ int next_change(const int* __restrict__ slots,
         if (b) return x + __ffs(b) - 1;
     }
     return limit;
-}
-
-// The gate of point p against the cylinder of the owner with center c and
-// unit normal nv, in the JAX operation order: t and d of q = p - c.
-__device__ __forceinline__ bool cylinder_hit(const float* p, const float* c,
-                                             const float* nv, float radius,
-                                             float& t, float& d) {
-    float q[3];
-    for (int a = 0; a < 3; ++a) q[a] = __fsub_rn(p[a], c[a]);
-    t = __fadd_rn(__fadd_rn(__fmul_rn(q[0], nv[0]), __fmul_rn(q[1], nv[1])),
-                  __fmul_rn(q[2], nv[2]));
-    float r[3];
-    for (int a = 0; a < 3; ++a) r[a] = __fsub_rn(q[a], __fmul_rn(t, nv[a]));
-    d = __fsqrt_rn(__fadd_rn(
-        __fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
-        __fmul_rn(r[2], r[2])));
-    return d < radius;
 }
 
 // One cell's run [lo, hi) of points through its owners' cylinders.

@@ -31,8 +31,17 @@
 // L2 (worth ~1% at the TSDF shape).  An id still unplaced after
 // max_probes gets slot -1; each block adds its count of those into the
 // caller's overflow counter with one atomic, and only when it is not 0,
-// so no fill or add launch follows.  Slots may differ from the JAX
-// package's lane-order election; callers compare by cell id.
+// so no fill or add launch follows.  Callers whose id count lives on the
+// card hand K2 arrays sized by their budgets, in one of two forms, so the
+// host never reads the count: B3 passes its run count (n_live, a device
+// int) and its ids packed before it, and the lanes at or past it are
+// neither read nor written (their slots are left as they were; a block
+// wholly past it returns at once); the refine's line cells (B6) pass the
+// sorted lanes with INVALID_ID (INT32_MAX, never a cell id) in every lane
+// that is not a run's first, and such a lane has no id: it gets slot -1
+// and is not counted.
+// Slots may differ from the JAX package's lane-order election; callers
+// compare by cell id.
 
 #include "common.cuh"
 
@@ -40,15 +49,19 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 hash_insert_kernel(int* __restrict__ keys, const int* __restrict__ ids,
-                   int n, uint32_t mask, int max_probes,
-                   int* __restrict__ slots, int* __restrict__ n_failed) {
+                   int n, const int* __restrict__ n_live, uint32_t mask,
+                   int max_probes, int* __restrict__ slots,
+                   int* __restrict__ n_failed) {
     const int i = blockIdx.x * kThreads + threadIdx.x;
+    const int live = n_live != nullptr ? min(n, *n_live) : n;
+    if (blockIdx.x * kThreads >= live) return;      // the whole block past it
     int failed = 0;
-    if (i < n) {
+    if (i < live) {
         const int id = __ldcs(ids + i);
         const uint32_t h = fmix32((uint32_t)id);
         int slot = -1;
-        for (uint32_t j = 0; j < (uint32_t)max_probes; ++j) {
+        for (uint32_t j = 0; id != INVALID_ID && j < (uint32_t)max_probes;
+             ++j) {
             const int s = (int)((h + ((j * (j + 1u)) >> 1)) & mask);
             int k = __ldcg(keys + s);
             if (k == -1) k = atomicCAS(keys + s, -1, id);
@@ -58,20 +71,22 @@ hash_insert_kernel(int* __restrict__ keys, const int* __restrict__ ids,
             }
         }
         __stcs(slots + i, slot);
-        failed = slot < 0;
+        failed = slot < 0 && id != INVALID_ID;
     }
     const int block_failed = __syncthreads_count(failed);
     if (threadIdx.x == 0 && block_failed != 0)
         atomicAdd(n_failed, block_failed);
 }
 
+// n_live: a device int bounding the lanes, or null for all n
 extern "C" int launch_hash_insert(void* keys, const void* ids, int n,
-                                  int capacity, int max_probes, void* slots,
+                                  const void* n_live, int capacity,
+                                  int max_probes, void* slots,
                                   void* n_failed, void* stream) {
     if (n == 0) return 0;
     hash_insert_kernel<<<grid_blocks(n, kThreads), kThreads, 0,
                          (cudaStream_t)stream>>>(
-        (int*)keys, (const int*)ids, n, (uint32_t)(capacity - 1),
-        max_probes, (int*)slots, (int*)n_failed);
+        (int*)keys, (const int*)ids, n, (const int*)n_live,
+        (uint32_t)(capacity - 1), max_probes, (int*)slots, (int*)n_failed);
     return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ returns ``cudaGetLastError()`` and ``check`` raises when it is not 0.
 
 ``-fmad=false`` keeps every f32 multiply and add separately rounded, so
 kernels whose results feed a ``floor`` or a strict comparison (K1's cell
-ids, K3's cylinder gate) agree bit for bit with their plain versions;
+ids, B6's line cells, K3's and B7's cylinder gate) agree bit for bit with
+their plain versions (a fused multiply-add is written out as
+``__fmaf_rn`` where the JAX package's jitted program has one);
 ``--use_fast_math`` is never used.
 
 ``LAUNCHES`` counts the launches of each kernel; the wrappers in ``ops/``
@@ -42,20 +44,22 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
             "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
-            "neighbor_count": 0, "route_pack": 0}
+            "neighbor_count": 0, "route_pack": 0, "integrate_lanes": 0,
+            "refine_lines": 0, "buffer_replay": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
 BUILD_INFO = {"seconds": 0.0, "ptxas": ""}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_long
 _SIGNATURES = {
     # depth, rgb565, counts, poses, rays, K, N, geo_f, geo_i, zmin, zmax,
     # world, ids, rgb, stream
     "launch_depth_frontend": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F,
                               _P, _P, _P, _P],
-    # keys, ids, n, capacity, max_probes, slots, n_failed, stream
-    "launch_hash_insert": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # keys, ids, n, n_live, capacity, max_probes, slots, n_failed, stream
+    "launch_hash_insert": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
     # pts, n, slots, key, normal, dep, dep_count, D, geo_f, geo_i, radius,
     # cyl_stats, stream
     "launch_dep_stream": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _F, _P,
@@ -94,6 +98,31 @@ _SIGNATURES = {
                           _F, _I, _I, _I, _P, _P, _P, _P, _P],
     # totals, budget, K, n, Bs_max, out, present, stream
     "launch_route_fill": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # sid, M, NA, extra_dropped, overflow_active, lane_run, uids, ustart,
+    # scratch, stream
+    "launch_integrate_lanes_cells": [_P, _L, _L, _I, _P, _P, _P, _P, _P,
+                                     _P],
+    # NA, M, N, lane_run, uids, ustart, uslot, order, world, rgb, poses,
+    # store_color, n_pts, normal_found, rgb_sum, viewpoint, occ_bits,
+    # want_len, want_off, pts, slot_pt, buf_pts, buf_slot, buf_count, B,
+    # overflow_buf, scratch, stream
+    "launch_integrate_lanes_append": [_L, _L, _I, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _L, _P, _P,
+                                      _P],
+    # cand, U, L, line_k, res0, key, nvec, gated, geo_f, geo_i, lid, stream
+    "launch_refine_lines_points": [_P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
+                                   _P, _P],
+    # sid, P, start_ids, stream
+    "launch_refine_lines_starts": [_P, _L, _P, _P],
+    # sid, lane, start_ids, kslot, P, U, cand, D, dep, dep_count,
+    # overflow_dep, ls, lu, stream
+    "launch_refine_lines_append": [_P, _P, _P, _P, _L, _I, _P, _I, _P, _P,
+                                   _P, _P, _P, _P],
+    # ls, lu, P, cand, U, nvec, key, bslot, bpts, bc, geo_f, geo_i, radius,
+    # cyl_stats, stream
+    "launch_buffer_replay": [_P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _P,
+                             _P, _F, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -196,6 +225,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
+def check_inputs(dev, *specs) -> None:
+    """Raise ValueError unless every ``(name, tensor, dtype, shape)`` in
+    ``specs`` has that dtype and shape and is contiguous on ``dev``: the
+    check a wrapper makes before its kernel or its plain version."""
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+
+
 def geometry_args(config, offset=None):
     """Host arrays for the launchers' ``geo_f`` (origin, resolution, bbox
     lower and upper corner, the f32 reciprocal resolution: 15 f32) and
@@ -209,6 +250,15 @@ def geometry_args(config, offset=None):
     f = np.concatenate([f, inv_resolution(config)])
     i = np.asarray(list(config.dims) + list(offset or (0, 0, 0)), np.int32)
     return f, i
+
+
+SCAN_TILE = 2048     # lanes a tile of csrc/scan.cuh's device-wide scan
+
+
+def scan_tiles(n: int) -> int:
+    """The tile sums a device-wide scan over ``n`` lanes keeps in its
+    scratch (csrc/scan.cuh scan_tiles_needed)."""
+    return max(-(-n // SCAN_TILE), 1)
 
 
 def ptr(a) -> int:

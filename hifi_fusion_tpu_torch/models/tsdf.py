@@ -185,17 +185,13 @@ def tsdf_lanes(depth: torch.Tensor, rgb565: torch.Tensor,
     its plain version on CPU tensors; bit-identical."""
     K, N = depth.shape
     dev = depth.device
-    for name, t, dtype, shape in (
-            ("depth", depth, torch.uint16, (K, N)),
-            ("rgb565", rgb565, torch.uint16, (K, N)),
-            ("counts", counts, torch.int32, (K,)),
-            ("poses", poses, torch.float32, (K, 4, 4)),
-            ("rays", rays, torch.float32, (3, N))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {dev}")
+    kernels.check_inputs(
+        dev,
+        ("depth", depth, torch.uint16, (K, N)),
+        ("rgb565", rgb565, torch.uint16, (K, N)),
+        ("counts", counts, torch.int32, (K,)),
+        ("poses", poses, torch.float32, (K, 4, 4)),
+        ("rays", rays, torch.float32, (3, N)))
     if dev.type == "cpu":
         return tsdf_lanes_plain(depth, rgb565, counts, poses, rays, config)
     if dev.type != "cuda":
@@ -244,16 +240,12 @@ def tsdf_lanes_planar(points: torch.Tensor, rgb: torch.Tensor,
     dev = points.device
     mshape = (K, N) if mask.dtype == torch.bool else (K,)
     mtype = torch.bool if mask.dtype == torch.bool else torch.int32
-    for name, t, dtype, shape in (
-            ("points", points, torch.float32, (K, 3, N)),
-            ("rgb", rgb, torch.float32, (K, 3, N)),
-            ("mask", mask, mtype, mshape),
-            ("poses", poses, torch.float32, (K, 4, 4))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {dev}")
+    kernels.check_inputs(
+        dev,
+        ("points", points, torch.float32, (K, 3, N)),
+        ("rgb", rgb, torch.float32, (K, 3, N)),
+        ("mask", mask, mtype, mshape),
+        ("poses", poses, torch.float32, (K, 4, 4)))
     if dev.type == "cpu":
         return tsdf_lanes_planar_plain(points, rgb, mask, poses, config)
     if dev.type != "cuda":

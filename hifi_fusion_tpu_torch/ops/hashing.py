@@ -10,7 +10,12 @@ else in a returned count.
 ``lookup_or_insert`` is kernel K2 (``csrc/hash_insert.cu``) on a CUDA
 tensor and its plain version on a CPU tensor.  Either may assign other
 slots than the JAX package's lane-order election; every comparison is by
-cell id.
+cell id.  A caller whose id count stays on the card hands K2 an array
+sized by its lane budget, in one of two forms: its ids packed first with
+their count as a device int (``n_live``; the integrate's run ids), or
+``INVALID_ID`` (INT32_MAX, never a cell id) in every lane without an id
+(the refine's line-cell run starts), which gets slot -1 and is not counted
+as a failure.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from .. import kernels
 
 _M32 = 0xFFFFFFFF
+INVALID_ID = torch.iinfo(torch.int32).max   # a lane without an id
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -66,13 +72,18 @@ def lookup(key_table: torch.Tensor, ids: torch.Tensor, max_probes: int,
     return slot
 
 
-def insert_plain(key_table, ids, max_probes, capacity, overflow=None):
+def insert_plain(key_table, ids, max_probes, capacity, overflow=None,
+                 n_live=None):
     """Plain version of K2: the same probe sequence, one round per probe
-    index over the unresolved ids.  Returns what ``lookup_or_insert``
-    returns."""
+    index over the unresolved ids (``INVALID_ID`` lanes and lanes at or
+    past ``n_live`` are never pending, and get -1).  Returns what
+    ``lookup_or_insert`` returns."""
     h0 = hash_u32(ids)
     slot = torch.full_like(ids, -1)
-    pending = torch.arange(ids.numel(), device=ids.device)
+    live = ids != INVALID_ID
+    if n_live is not None:
+        live[int(n_live):] = False
+    pending = torch.nonzero(live).squeeze(1)
     for j in range(max_probes):
         if pending.numel() == 0:
             break
@@ -99,14 +110,20 @@ def insert_plain(key_table, ids, max_probes, capacity, overflow=None):
 
 def lookup_or_insert(key_table: torch.Tensor, ids: torch.Tensor,
                      max_probes: int, capacity: int,
-                     overflow: Optional[torch.Tensor] = None
+                     overflow: Optional[torch.Tensor] = None,
+                     n_live: Optional[torch.Tensor] = None
                      ) -> Union[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
     """Find-or-insert DISTINCT int32 ``ids`` (every caller deduplicates
-    first).  Updates ``key_table`` in place and gives a slot per id, -1
-    for an id that exhausted ``max_probes``.  With ``overflow``, the
-    caller's 0-d int32 counter, the number of such ids is added into it in
-    place and the slots alone are returned (one launch on the card);
+    first); ``INVALID_ID`` lanes, any number of them, hold no id.  Updates
+    ``key_table`` in place and gives a slot per lane, -1 for an id that
+    exhausted ``max_probes`` and for an ``INVALID_ID`` lane.  With
+    ``n_live``, a 0-d int32 count on the table's device, only the lanes
+    before it are ids: the kernel neither reads nor writes the rest (their
+    slots are left unset), the plain version gives them -1.  With
+    ``overflow``, the caller's 0-d int32 counter, the number of ids that
+    failed is added into it in place and the slots alone are returned
+    (one launch on the card);
     without it, ``(slot, n_failed)`` with the number as a 0-d int32
     tensor."""
     if key_table.dtype != torch.int32 or ids.dtype != torch.int32:
@@ -116,13 +133,14 @@ def lookup_or_insert(key_table: torch.Tensor, ids: torch.Tensor,
         raise ValueError("key_table must be a contiguous (capacity,) table")
     if ids.device != key_table.device:
         raise ValueError("ids and key_table must share a device")
-    if overflow is not None and (overflow.dtype != torch.int32
-                                 or overflow.dim() != 0
-                                 or overflow.device != key_table.device):
-        raise ValueError("overflow must be a 0-d int32 counter on the "
-                         "table's device")
+    for name, c in (("overflow", overflow), ("n_live", n_live)):
+        if c is not None and (c.dtype != torch.int32 or c.dim() != 0
+                              or c.device != key_table.device):
+            raise ValueError(f"{name} must be a 0-d int32 tensor on the "
+                             "table's device")
     if key_table.device.type == "cpu":
-        return insert_plain(key_table, ids, max_probes, capacity, overflow)
+        return insert_plain(key_table, ids, max_probes, capacity, overflow,
+                            n_live)
     if key_table.device.type != "cuda":
         raise ValueError(f"unsupported device {key_table.device}")
     ids = ids.contiguous()
@@ -133,8 +151,9 @@ def lookup_or_insert(key_table: torch.Tensor, ids: torch.Tensor,
     if n:
         lib = kernels.library()
         kernels.check(lib.launch_hash_insert(
-            key_table.data_ptr(), ids.data_ptr(), n, capacity, max_probes,
-            slot.data_ptr(), n_failed.data_ptr(), kernels.stream()),
-            "hash_insert")
+            key_table.data_ptr(), ids.data_ptr(), n,
+            None if n_live is None else n_live.data_ptr(), capacity,
+            max_probes, slot.data_ptr(), n_failed.data_ptr(),
+            kernels.stream()), "hash_insert")
         kernels.LAUNCHES["hash_insert"] += 1
     return slot if overflow is not None else (slot, n_failed)

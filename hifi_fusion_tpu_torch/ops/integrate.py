@@ -24,10 +24,13 @@ a (K,N) lane mask or a (K,) count prefix.  One batch:
 
 Stages 2-6 (``integrate_lanes``) do not know the wire.  Every accumulator
 is a sum, so the batch equals K sequential frames up to f32 addition
-order.  Stages 2-5 are plain PyTorch.  As on the depth wire, the only lane
-budget is the active one (NA = K * max_active_points); the JAX package's
-unique and hit budgets (``batch_lane_budgets``) never bind here
-(``overflow_unique`` and ``overflow_hits`` stay 0, grid.py).
+order.  Stage 2 is the library sort; stages 3-5 are kernel B3
+(``aggregate_lanes``, ``csrc/integrate_lanes.cu``) around K2, and every
+array is sized by the active-lane budget, so on the card a batch is
+enqueued without a read back to the host.  As on the depth wire, the
+only lane budget is the active one (NA = K * max_active_points); the JAX
+package's unique and hit budgets (``batch_lane_budgets``) never bind
+here (``overflow_unique`` and ``overflow_hits`` stay 0, grid.py).
 """
 
 from __future__ import annotations
@@ -38,9 +41,8 @@ from .. import kernels
 from ..config import FusionConfig
 from ..grid import GridState
 from . import geometry, hashing
+from .hashing import INVALID_ID     # the cell id of an invalid lane
 from .scatter import run_sums, runs
-
-INVALID_ID = torch.iinfo(torch.int32).max   # cell id of an invalid lane
 
 
 def _u16_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -106,17 +108,13 @@ def depth_frontend(depth: torch.Tensor, rgb565: torch.Tensor,
     bit-identical."""
     K, N = depth.shape
     dev = depth.device
-    for name, t, dtype, shape in (
-            ("depth", depth, torch.uint16, (K, N)),
-            ("rgb565", rgb565, torch.uint16, (K, N)),
-            ("counts", counts, torch.int32, (K,)),
-            ("poses", poses, torch.float32, (K, 4, 4)),
-            ("rays", rays, torch.float32, (3, N))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {dev}")
+    kernels.check_inputs(
+        dev,
+        ("depth", depth, torch.uint16, (K, N)),
+        ("rgb565", rgb565, torch.uint16, (K, N)),
+        ("counts", counts, torch.int32, (K,)),
+        ("poses", poses, torch.float32, (K, 4, 4)),
+        ("rays", rays, torch.float32, (3, N)))
     if dev.type == "cpu":
         return depth_frontend_plain(depth, rgb565, counts, poses, rays,
                                      config, offset)
@@ -225,12 +223,7 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
                          f"{mask.dtype}")
     if q16:
         checks.append(("quant", quant, torch.float32, (K, 2, 3)))
-    for name, t, dtype, shape in checks:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {dev}")
+    kernels.check_inputs(dev, *checks)
     if dev.type == "cpu":
         return planar_frontend_plain(points, rgb, mask, poses, quant,
                                      config, offset, pre_transformed)
@@ -330,34 +323,22 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def integrate_lanes(grid: GridState, world: torch.Tensor,
-                    ids: torch.Tensor, rgb: torch.Tensor,
-                    poses: torch.Tensor, K: int, N: int,
-                    config: FusionConfig, offset=None,
-                    extra_dropped: int = 0) -> GridState:
-    """Stages 2-6 of a K-frame batch on a frontend's frame-major lanes
-    ((3,K*N) f32 world points, (K*N,) i32 ids with INT32_MAX where
-    invalid, (3,K*N) f32 rgb) and the batch's (K,4,4) poses, into ``grid``
-    in place; returns ``grid``.  No refine: the caller fires
-    ``refine_pass`` when ``refine_due`` says a mark fell inside the
-    batch.  ``offset``: the shard's coordinate offset; ``extra_dropped``:
-    points a router dropped for this batch, added to ``overflow_active``
-    (JAX integrate.py:322-325)."""
-    M = K * N
+def aggregate_lanes_plain(grid, sid, order, world, rgb, poses, N, NA,
+                          config, extra_dropped=0):
+    M = sid.numel()
     C = config.capacity
     B = config.buffer_capacity
     f32 = torch.float32
+    dev = sid.device
 
-    sid, order = torch.sort(ids, stable=True)
     n_act = int((sid != INVALID_ID).sum())
-    NA = min(K * config.max_active_points, M)    # active-lane budget
     n_sv = min(n_act, NA)
     grid.overflow_active += max(n_act - NA, 0) + extra_dropped
-    sid, order = sid[:n_sv], order[:n_sv]
-    pts = world[:, order]
-    fid = order // N
+    s_sid, s_order = sid[:n_sv], order[:n_sv]
+    pts = world[:, s_order]
+    fid = s_order // N
 
-    uids, ustart, ulen, run = runs(sid)
+    uids, ustart, ulen, run = runs(s_sid)
     uslot = hashing.lookup_or_insert(grid.key, uids, config.max_probes, C,
                                      grid.overflow_probe)
     placed = uslot >= 0
@@ -368,7 +349,7 @@ def integrate_lanes(grid: GridState, world: torch.Tensor,
 
     ps = us[placed]
     if config.store_color:
-        rgb_u = run_sums(rgb[:, order], run, uids.numel())       # (3,U)
+        rgb_u = run_sums(rgb[:, s_order], run, uids.numel())     # (3,U)
         grid.rgb_sum.view(C, 3).index_add_(0, ps, rgb_u[:, placed].t())
     grid.n_pts.index_add_(0, ps, ulen[placed].to(f32))
 
@@ -394,6 +375,109 @@ def integrate_lanes(grid: GridState, world: torch.Tensor,
     else:
         grid.overflow_buf += n_want
 
+    out_pts = torch.zeros((3, NA), dtype=f32, device=dev)
+    out_slot = torch.full((NA,), -1, dtype=torch.int32, device=dev)
+    out_pts[:, :n_sv] = pts
+    out_slot[:n_sv] = slot_pt
+    return out_pts, out_slot
+
+
+def aggregate_lanes(grid: GridState, sid: torch.Tensor, order: torch.Tensor,
+                    world: torch.Tensor, rgb: torch.Tensor,
+                    poses: torch.Tensor, N: int, NA: int,
+                    config: FusionConfig, extra_dropped: int = 0):
+    """Stages 3-5 of a batch on its M lanes sorted by cell id (``sid``
+    (M,) i32, INT32_MAX last, and the stable sort's ``order`` (M,) i64 into
+    the frontend's frame-major lanes of ``world`` and ``rgb``, (3,M) f32),
+    with the batch's (K,4,4) ``poses``, N lanes a frame and the active-lane
+    budget NA: the first NA sorted lanes are the batch's, the valid lanes
+    past them count in ``overflow_active`` with ``extra_dropped``; the
+    unique cells are found or inserted (K2), and per cell Σrgb and the
+    point count are added, the first viewpoint stamped and the bitmap bit
+    set; the wanted lanes (placed, no normal yet) are appended to the
+    buffer when ``buf_count + NA <= B``, else counted in ``overflow_buf``.
+    Updates ``grid`` in place; returns ``(pts (3,NA) f32, slot_pt (NA,)
+    i32)``: the sorted lanes' points and cell slots for the dependant
+    stream, slot -1 past the valid lanes and for an unplaced cell.
+
+    Kernel B3 (``csrc/integrate_lanes.cu``, counted as
+    ``integrate_lanes``) with K2 on CUDA tensors, reading nothing back to
+    the host; its plain version on CPU tensors.  The slots may differ
+    (K2's CAS race); the grid is the same by cell id."""
+    M = sid.numel()
+    dev = sid.device
+    kernels.check_inputs(
+        dev,
+        ("sid", sid, torch.int32, (M,)),
+        ("order", order, torch.int64, (M,)),
+        ("world", world, torch.float32, (3, M)),
+        ("rgb", rgb, torch.float32, (3, M)),
+        ("poses", poses, torch.float32, (poses.shape[0], 4, 4)))
+    if not 0 <= NA <= M or grid.device != dev:
+        raise ValueError(f"NA {NA} of {M} lanes, grid on {grid.device}")
+    if dev.type == "cpu":
+        return aggregate_lanes_plain(grid, sid, order, world, rgb, poses, N,
+                                     NA, config, extra_dropped)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    i32 = torch.int32
+
+    def ints(n):
+        return torch.empty((n,), dtype=i32, device=dev)
+
+    lane_run, uids, ustart = ints(NA), ints(NA), ints(NA + 1)
+    scratch = ints(2 + kernels.scan_tiles(NA))
+    pts = torch.empty((3, NA), dtype=torch.float32, device=dev)
+    slot_pt = ints(NA)
+    lib = kernels.library()
+    st = kernels.stream()
+    kernels.check(lib.launch_integrate_lanes_cells(
+        sid.data_ptr(), M, NA, int(extra_dropped),
+        grid.overflow_active.data_ptr(), lane_run.data_ptr(),
+        uids.data_ptr(), ustart.data_ptr(), scratch.data_ptr(), st),
+        "integrate_lanes")
+    if NA:
+        uslot = hashing.lookup_or_insert(grid.key, uids, config.max_probes,
+                                         config.capacity,
+                                         grid.overflow_probe,
+                                         n_live=scratch[0])
+        want_len, want_off = ints(NA), ints(NA)
+        kernels.check(lib.launch_integrate_lanes_append(
+            NA, M, N, lane_run.data_ptr(), uids.data_ptr(),
+            ustart.data_ptr(), uslot.data_ptr(), order.data_ptr(),
+            world.data_ptr(), rgb.data_ptr(), poses.data_ptr(),
+            int(config.store_color), grid.n_pts.data_ptr(),
+            grid.normal_found.data_ptr(), grid.rgb_sum.data_ptr(),
+            grid.viewpoint.data_ptr(), grid.occ_bits.data_ptr(),
+            want_len.data_ptr(), want_off.data_ptr(), pts.data_ptr(),
+            slot_pt.data_ptr(), grid.buf_pts.data_ptr(),
+            grid.buf_slot.data_ptr(), grid.buf_count.data_ptr(),
+            config.buffer_capacity, grid.overflow_buf.data_ptr(),
+            scratch.data_ptr(), st), "integrate_lanes")
+    kernels.LAUNCHES["integrate_lanes"] += 1
+    return pts, slot_pt
+
+
+def integrate_lanes(grid: GridState, world: torch.Tensor,
+                    ids: torch.Tensor, rgb: torch.Tensor,
+                    poses: torch.Tensor, K: int, N: int,
+                    config: FusionConfig, offset=None,
+                    extra_dropped: int = 0) -> GridState:
+    """Stages 2-6 of a K-frame batch on a frontend's frame-major lanes
+    ((3,K*N) f32 world points, (K*N,) i32 ids with INT32_MAX where
+    invalid, (3,K*N) f32 rgb) and the batch's (K,4,4) poses, into ``grid``
+    in place; returns ``grid``.  No refine: the caller fires
+    ``refine_pass`` when ``refine_due`` says a mark fell inside the
+    batch.  ``offset``: the shard's coordinate offset; ``extra_dropped``:
+    points a router dropped for this batch, added to ``overflow_active``
+    (JAX integrate.py:322-325).  On the card every stage is enqueued with
+    no read back to the host: the library sort, B3 with K2, and K3 over
+    the whole active-lane budget."""
+    M = K * N
+    NA = min(K * config.max_active_points, M)    # active-lane budget
+    sid, order = torch.sort(ids, stable=True)
+    pts, slot_pt = aggregate_lanes(grid, sid, order, world, rgb, poses, N,
+                                   NA, config, extra_dropped)
     dep_stream(pts, slot_pt, grid, config, offset)
     grid.frames += K
     return grid

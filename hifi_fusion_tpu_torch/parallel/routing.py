@@ -207,14 +207,6 @@ def route_pack_plain(points, rgb, mask, poses, config, n_dev, slab_w,
                   recv[:, :, 6] > 0.5, Bs, dropped, mx)
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if t.device != dev or not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous on {dev}")
-
-
 _host = threading.local()
 
 
@@ -315,11 +307,12 @@ def route_pack(points: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,
     dev = points.device
     if N % n_dev:
         raise ValueError(f"max_points {N} must divide the mesh ({n_dev})")
-    _check("points", points, torch.float32, (K, 3, N), dev)
-    _check("rgb", rgb, torch.float32, (K, 3, N), dev)
-    _check("mask", mask, mask.dtype,
-           (K, N) if mask.dtype == torch.bool else (K,), dev)
-    _check("poses", poses, torch.float32, (K, 4, 4), dev)
+    kernels.check_inputs(
+        dev, ("points", points, torch.float32, (K, 3, N)),
+        ("rgb", rgb, torch.float32, (K, 3, N)),
+        ("mask", mask, mask.dtype,
+         (K, N) if mask.dtype == torch.bool else (K,)),
+        ("poses", poses, torch.float32, (K, 4, 4)))
     if mask.dtype not in (torch.bool, torch.int32):
         raise ValueError(f"mask: bool lanes or i32 counts, got "
                          f"{mask.dtype}")
@@ -348,11 +341,12 @@ def route_pack_depth(depth: torch.Tensor, rgb565: torch.Tensor,
     dev = depth.device
     if N % n_dev:
         raise ValueError(f"max_points {N} must divide the mesh ({n_dev})")
-    _check("depth", depth, torch.uint16, (K, N), dev)
-    _check("rgb565", rgb565, torch.uint16, (K, N), dev)
-    _check("counts", counts, torch.int32, (K,), dev)
-    _check("poses", poses, torch.float32, (K, 4, 4), dev)
-    _check("rays", rays, torch.float32, (3, N), dev)
+    kernels.check_inputs(
+        dev, ("depth", depth, torch.uint16, (K, N)),
+        ("rgb565", rgb565, torch.uint16, (K, N)),
+        ("counts", counts, torch.int32, (K,)),
+        ("poses", poses, torch.float32, (K, 4, 4)),
+        ("rays", rays, torch.float32, (3, N)))
     if dev.type == "cpu":
         pc, rgb, mask = depth_lanes(depth, rgb565, counts, rays)
         return route_pack_plain(pc, rgb, mask, poses, config, n_dev,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times kernels K1, K2 (at its three call shapes), K4, T1, K3, T3 (at two
-shapes), K5, T2p, B11 (at two shapes) and B12 (on two wires, alone and
-with the exchange), K1 and K5 with a shard's offset, and the replays, of
+shapes), K5, T2p, B11 (at two shapes), B12 (on two wires, alone and with
+the exchange), B3, B6 and B7, K1 and K5 with a shard's offset, and the
+replays with the fusion replay's device idle share, of
 two or more checkouts of the PyTorch port on one CUDA card, in the order
 A, B, ..., ..., B, A.
 
@@ -18,7 +19,8 @@ JSON line.  The inputs are built through that checkout's own paths, with
   config-5 integrate of that batch make (``chip_smoke.fusion_state`` and
   ``tsdf_state``), in the form the checkout's callers use: the failures
   added into their counter (one launch), or for a wrapper without that
-  argument the returned count added by the caller;
+  argument the returned count added by the caller, and the caller's
+  device-side live count where it passes one;
 * ``normal_fit``: K4 on the refine's candidates after that batch;
 * ``segscan``: T1 (kind add) on the batch's sorted sample lanes at TSDF
   config 5 (6 x 27,033,600 lanes);
@@ -49,11 +51,21 @@ JSON line.  The inputs are built through that checkout's own paths, with
   fusion replay's final grid (``chip_smoke.fusion_final_grid``) over all
   2^22 slots (-1 where unoccupied, the ROR call) and over the occupied
   slots alone, for a checkout that has ``ops/queries``;
+* ``integrate_lanes``, ``refine_lines``, ``buffer_replay``: B3 on the
+  third batch into the carried grid, B6 and B7 on the first refine
+  (``chip_smoke.check_integrate_lanes`` and ``check_refine_kernels``,
+  each held to its plain version there), for a checkout that has them;
 * ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``, ``sharded_mpts``: the
   96-frame replays of phases 4, 6, 7 and 14's routed one (4 shards on the
   card; push to drain; ``process()`` follows, untimed; the planar one for
   a checkout with ``push_frame``, the sharded one for a checkout with
-  ``parallel/routing``).
+  ``parallel/routing``), with the session's ``device_step`` and
+  ``refine`` ms a dispatch (``*_dispatch_ms``) of the fusion, planar and
+  sharded ones;
+* ``fusion_profile``: the fusion replay again under ``torch.profiler``
+  (``chip_smoke.profiled_replay``): the seconds the card was busy over
+  the window, the busy share, and ``device_step`` / ``refine`` a
+  dispatch.
 
 Kernel times are device times (``chip_smoke.device_ms``): the median of 10
 calls, CUDA events around each call, with a sleep kernel ahead of the
@@ -84,7 +96,8 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "tsdf_lanes_planar", "neighbor_count/ror",
          "neighbor_count/occupied", "depth_frontend/offset",
          "planar_frontend/offset", "route_pack/depth", "route_pack/planar",
-         "route_exchange/depth", "route_exchange/planar")
+         "route_exchange/depth", "route_exchange/planar",
+         "integrate_lanes", "refine_lines", "buffer_replay")
 
 
 def smoke():
@@ -164,11 +177,13 @@ def child(root: str) -> dict:
 
     insert = callers_insert(hashing)
 
-    def time_insert(table, ids, max_probes):
+    def time_insert(table, ids, n_live, max_probes):
+        live = () if n_live is None else (n_live,)
+
         def setup():
             return cs.cold(torch, table.clone(), ids, max_probes,
                            table.numel(), torch.zeros(
-                               (), dtype=torch.int32, device=dev))
+                               (), dtype=torch.int32, device=dev), *live)
         return cs.device_ms(torch, insert, setup, reps=REPS)
 
     res = {"root": root}
@@ -180,8 +195,8 @@ def child(root: str) -> dict:
         torch, lambda: integrate.depth_frontend(*b0, rays, cfg), tuple,
         reps=REPS)
     grid, calls = cs.fusion_state(torch, hashing, pipe, batch, rays)
-    for shape, (table, ids) in calls.items():
-        res[f"hash_insert/{shape}"] = time_insert(table, ids,
+    for shape, (table, ids, n_live) in calls.items():
+        res[f"hash_insert/{shape}"] = time_insert(table, ids, n_live,
                                                   cfg.max_probes)
     del calls
     world, ids, _ = integrate.depth_frontend(*batch(2), rays, cfg)
@@ -201,7 +216,18 @@ def child(root: str) -> dict:
             torch, cand, dataclasses.replace(
                 grid, normal=grid.normal.clone(),
                 normal_found=grid.normal_found.clone()), cfg), reps=REPS)
-    del pipe, grid, world, ids, sid, order, pts
+    del grid, world, ids, sid, order, pts
+    # B3, B6, B7 (phase 3's checks and inputs), for a checkout with them
+    for name in ("integrate_lanes", "refine_lines", "buffer_replay"):
+        res[name] = None
+    if hasattr(integrate, "aggregate_lanes"):
+        res["integrate_lanes"] = cs.check_integrate_lanes(
+            torch, cfg, pipe, batch, rays)["ms"]
+        for name, r in cs.check_refine_kernels(torch, cfg, pipe, batch,
+                                               rays).items():
+            res[name] = r["ms"]
+    del pipe
+    torch.cuda.empty_cache()
     # T1, K2 (tsdf)
     tcfg = cs.tsdf_config(FusionConfig, tsdf.TsdfConfig)
     tp = tsdf.TsdfPipeline(tcfg, dev)
@@ -214,8 +240,9 @@ def child(root: str) -> dict:
     res["segscan"] = cs.device_ms(torch, scatter.segment_reduce,
                                   lambda: (svals, starts, "add"), reps=REPS)
     del svals, starts, sid
-    grid, (table, ids) = cs.tsdf_state(hashing, tp, batch, rays)
-    res["hash_insert/tsdf"] = time_insert(table, ids, tcfg.base.max_probes)
+    grid, (table, ids, n_live) = cs.tsdf_state(hashing, tp, batch, rays)
+    res["hash_insert/tsdf"] = time_insert(table, ids, n_live,
+                                          tcfg.base.max_probes)
     del table, ids
     final = tp.init()
     for i in range(cs.FRAMES // 8):
@@ -293,24 +320,37 @@ def child(root: str) -> dict:
                 lambda: (grid, s, cfg, 2), reps=REPS)
         del grid, occ, live, every
     torch.cuda.empty_cache()
-    # the replays
+    # the replays, with the session's device_step and refine ms a dispatch
+    def per_dispatch(m):
+        t = m["stage_timers"]
+        return {k: 1e3 * t[k]["total_s"] / t[k]["count"]
+                for k in ("device_step", "refine") if t.get(k, {}).get(
+                    "count")}
+
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
-        dt = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/f")[1]
+        _, dt, _, m = cs.replay(torch, cfg, frames, rays_np, "cuda",
+                                tmp + "/f")
         res["fusion_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+        res["fusion_dispatch_ms"] = per_dispatch(m)
+        res["fusion_profile"] = cs.profiled_replay(torch, cfg, frames,
+                                                   rays_np)
         dt = cs.replay(torch, tcfg.base, frames, rays_np, "cuda",
                        tmp + "/t", model="tsdf",
                        model_params=cs.TSDF_PARAMS)[1]
         res["tsdf_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
         res["planar_mpts"] = None
         if hasattr(session.FusionSession, "push_frame"):
-            dt = cs.replay(torch, cfg, frames, None, "cuda", tmp + "/p",
-                           clouds=cs.cloud_frames(frames))[1]
+            _, dt, _, m = cs.replay(torch, cfg, frames, None, "cuda",
+                                    tmp + "/p",
+                                    clouds=cs.cloud_frames(frames))
             res["planar_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+            res["planar_dispatch_ms"] = per_dispatch(m)
         res["sharded_mpts"] = None
         if routed:
-            dt = cs.replay(torch, cfg, frames, rays_np, "cuda", tmp + "/s",
-                           n_devices=4, route=True)[1]
+            _, dt, _, m = cs.replay(torch, cfg, frames, rays_np, "cuda",
+                                    tmp + "/s", n_devices=4, route=True)
             res["sharded_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+            res["sharded_dispatch_ms"] = per_dispatch(m)
     return res
 
 
@@ -343,7 +383,11 @@ def main(argv) -> int:
                           else f"{k} {r[k]:.4f}" for k in TIMED)
         print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f}, tsdf "
               f"{r['tsdf_mpts']:.3f}, planar {r['planar_mpts']}, sharded "
-              f"{r['sharded_mpts']} Mpts/s ({root})", flush=True)
+              f"{r['sharded_mpts']} Mpts/s ({root}); ms a dispatch: fusion "
+              f"{r['fusion_dispatch_ms']}, planar "
+              f"{r.get('planar_dispatch_ms')}, sharded "
+              f"{r.get('sharded_dispatch_ms')}; fusion replay profiled "
+              f"{json.dumps(r['fusion_profile'])}", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

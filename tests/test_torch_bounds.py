@@ -157,3 +157,54 @@ def test_route_pack_bytes(wire, K, N, n, Bs, want):
     b = bounds.route_pack(K, N, n, Bs, wire)
     assert b["bytes"] == want and b["ops"] == 30 * K * N
     assert b["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("color", [True, False])
+def test_integrate_lanes_bytes(color):
+    # NA lanes: sid + i64 order read, sorted xyz + slot written (28 B);
+    # valid lanes gather xyz (+ rgb); per cell key, n_pts r/w, normal_found
+    # (+ rgb_sum r/w); new keys, first viewpoints, words r/w, appended lanes
+    b = bounds.integrate_lanes(100, 80, 10, 3, 4, 2, 50, color)
+    lane, cell = (24, 37) if color else (12, 13)
+    assert b["bytes"] == (100 * 28 + 80 * lane + 10 * cell + 3 * 4 + 4 * 12
+                          + 2 * 8 + 50 * 16)
+    assert b["ops"] == 80 * (4 if color else 1)
+
+
+def test_refine_lines_and_replay_bytes():
+    b = bounds.refine_lines(1000, 900, 7, 3000, 1200, 5000)
+    assert b["bytes"] == (1000 * 21 + 7000 * 8 + 3000 * 12 + 1200 * 4
+                          + 5000 * 4)
+    assert b["ops"] == 10 * 7 * 900
+    r = bounds.buffer_replay(7000, 5000, 20000, 30000, 800)
+    assert r["bytes"] == 7000 * 8 + 5000 * 20 + 20000 * 16 + 800 * 40
+    assert r["ops"] == 20 * 30000
+
+
+def test_buffer_replay_counts():
+    # links to slots 3 (twice), 5 and 9 (no buffered point), one unwritten
+    ls = torch.tensor([3, 3, 5, 9, -1], dtype=torch.int32)
+    bslot = torch.tensor([1, 3, 3, 3, 5, 7], dtype=torch.int32)
+    hits = torch.tensor([0.0, 2.0, 0.0, 1.0])
+    assert bounds.buffer_replay_counts(ls, bslot, hits) == {
+        "P": 5, "n_links": 4, "n_points": 4, "n_pairs": 7,
+        "n_hit_owners": 2}
+
+
+def test_launcher_signatures_match_sources():
+    """Every ``launch_*`` entry point of ``csrc/*.cu`` has the ctypes
+    argument list ``kernels`` binds it with: a pointer where the C side
+    takes one, else int, long or float in order (a mismatch passes a
+    wrong value to a kernel that cannot be built here)."""
+    import ctypes
+    import re
+    from hifi_fusion_tpu_torch import kernels
+    src = "".join(p.read_text() for p in sorted(kernels.CSRC.glob("*.cu")))
+    decls = dict(re.findall(r'extern "C" int (launch_\w+)\(([^)]*)\)', src))
+    assert set(decls) == set(kernels._SIGNATURES)
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "int",
+             ctypes.c_long: "long", ctypes.c_float: "float"}
+    for name, argtypes in kernels._SIGNATURES.items():
+        params = [p.split() for p in decls[name].split(",")]
+        got = ["p" if "*" in " ".join(p) else p[-2] for p in params]
+        assert got == [kinds[a] for a in argtypes], name

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from hifi_fusion_tpu_torch import checks, kernels
+from hifi_fusion_tpu_torch import checks, convert, kernels
 from hifi_fusion_tpu_torch.config import small_test_config
 from hifi_fusion_tpu_torch.grid import make_grid
 from hifi_fusion_tpu_torch.models import tsdf
@@ -749,3 +749,185 @@ def test_route_pack_bit_exact(dev, n, wire, budget):
         assert got.send_lanes == tiers[0] and got.n_dropped == 0
     if K == 4 and budget != "drop":     # there every bucket fills 128
         assert bool(((_bucket_loads(got) % 4) != 0).any())
+
+
+def _grid_copy(g):
+    return dataclasses.replace(g, **{f.name: getattr(g, f.name).clone()
+                                     for f in dataclasses.fields(g)})
+
+
+def _cells(g, slots):
+    """The cell id at each slot, -1 where the slot is -1."""
+    return torch.where(slots >= 0, g.key[slots.clamp(min=0).long()], -1)
+
+
+def _links(g, links):
+    """The (cell id, candidate) pairs of ``refine_lines``' link lanes,
+    sorted, with cell -1 where no link was written."""
+    cells = _cells(g, links[0]).cpu().tolist()
+    return sorted(zip(cells, links[1].cpu().tolist()))
+
+
+def test_hash_insert_sentinel_lanes(state):
+    """K2 on a budget-sized array: INVALID_ID lanes get slot -1 and are
+    not counted, the ids between them are placed as the plain version
+    places them."""
+    pipe, grid, rays, b = state
+    _, ids, _ = integrate.depth_frontend(*b, rays, CFG)
+    uids = torch.unique(ids[ids != hashing.INVALID_ID]).to(torch.int32)
+    lanes = torch.full((3 * uids.numel(),), hashing.INVALID_ID,
+                       dtype=torch.int32, device=pipe.device)
+    lanes[1::3] = uids
+    kk, kp = grid.key.clone(), grid.key.clone()
+    sk, fk = hashing.lookup_or_insert(kk, lanes, CFG.max_probes,
+                                      CFG.capacity)
+    sp, fp = hashing.insert_plain(kp, lanes, CFG.max_probes, CFG.capacity)
+    assert int(fk) == int(fp) == 0
+    for s in (sk, sp):
+        assert bool((s[0::3] == -1).all()) and bool((s[2::3] == -1).all())
+    assert torch.equal(kk[sk[1::3].long()], uids)
+    assert torch.equal(torch.sort(kk).values, torch.sort(kp).values)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.37, 1.0])
+def test_hash_insert_live_count(state, frac):
+    """K2 on ids packed before a device-side live count, with ids past it
+    that no grid cell has: only the ids before the count reach the table,
+    as the plain version places them, and no failure is counted."""
+    pipe, grid, rays, b = state
+    _, ids, _ = integrate.depth_frontend(*b, rays, CFG)
+    uids = torch.unique(ids[ids != hashing.INVALID_ID]).to(torch.int32)
+    n = int(frac * uids.numel())
+    stale = torch.arange(uids.numel(), dtype=torch.int32,
+                         device=pipe.device) + (1 << 30)
+    lanes = torch.cat([uids[:n], stale[n:]])
+    n_live = torch.tensor(n, dtype=torch.int32, device=pipe.device)
+    kk, kp = grid.key.clone(), grid.key.clone()
+    fk, fp = (torch.zeros((), dtype=torch.int32, device=pipe.device)
+              for _ in range(2))
+    sk = hashing.lookup_or_insert(kk, lanes, CFG.max_probes, CFG.capacity,
+                                  fk, n_live=n_live)
+    sp = hashing.insert_plain(kp, lanes, CFG.max_probes, CFG.capacity, fp,
+                              n_live)
+    assert int(fk) == int(fp) == 0
+    assert torch.equal(kk[sk[:n].long()], uids[:n])
+    assert bool((sp[n:] == -1).all())
+    assert torch.equal(torch.sort(kk).values, torch.sort(kp).values)
+    assert not bool(torch.isin(stale[n:], kk).any())
+
+
+@pytest.mark.parametrize("case", ["full", "active_budget", "buffer_full",
+                                  "k1"])
+def test_integrate_lanes_matches_plain(state, case):
+    """B3 against its plain version on the third batch's sorted lanes: the
+    grid by cell id (every integer field, the integer-valued sums, the
+    buffer in order) and the sorted points and slots K3 takes."""
+    pipe, grid, rays, b = state
+    k = 1 if case == "k1" else 4
+    b = tuple(t[:k].contiguous() for t in b)
+    world, ids, rgb = integrate.depth_frontend(*b, rays, CFG)
+    sid, order = torch.sort(ids, stable=True)
+    n_act = int((sid != hashing.INVALID_ID).sum())
+    M = ids.numel()
+    NA = min(k * CFG.max_active_points, M)
+    if case == "active_budget":
+        NA = n_act // 2
+    gk, gp = _grid_copy(grid), _grid_copy(grid)
+    if case == "buffer_full":
+        for g in (gk, gp):
+            g.buf_count.fill_(CFG.buffer_capacity - NA + 1)
+    n0 = kernels.LAUNCHES["integrate_lanes"]
+    pk, sk = integrate.aggregate_lanes(gk, sid, order, world, rgb, b[3],
+                                       M // k, NA, CFG, extra_dropped=3)
+    pp, sp = integrate.aggregate_lanes_plain(gp, sid, order, world, rgb,
+                                             b[3], M // k, NA, CFG, 3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["integrate_lanes"] == n0 + 1
+    assert _same_words(pk, pp)
+    assert torch.equal(_cells(gk, sk), _cells(gp, sp))
+    problems = checks.grid_problems(convert.grid_to_numpy(gk),
+                                    convert.grid_to_numpy(gp), CFG)
+    assert not problems, problems
+    before = int(grid.overflow_active)
+    assert int(gk.overflow_active) - before == max(n_act - NA, 0) + 3
+    if case == "buffer_full":
+        assert int(gk.overflow_buf) > int(grid.overflow_buf)
+        assert int(gk.buf_count) == CFG.buffer_capacity - NA + 1
+    else:
+        assert int(gk.buf_count) > int(grid.buf_count)
+    assert float((gk.n_pts - grid.n_pts).sum()) == min(n_act, NA)
+
+
+@pytest.mark.parametrize("cap", [False, True])
+def test_refine_lines_and_replay_match_plain(state, cap):
+    """B6 against its plain version on the refine after the third batch
+    (dependant lists in order, counts, links by cell), with D binding
+    when ``cap`` fills every list to D - 1; then B7 on B6's links against
+    its plain version (hit counts exact, sums under cyl_stats_error)."""
+    pipe, grid, rays, b = state
+    g0 = _grid_copy(grid)
+    integrate.integrate_batch_depth(g0, *b, rays, CFG)
+    D = CFG.max_dependants
+    if cap:
+        g0.dep_count.copy_(torch.where(g0.key >= 0,
+                                       g0.dep_count.clamp(min=D - 1),
+                                       g0.dep_count))
+    cand = torch.nonzero((g0.n_pts > 0) & ~g0.normal_found).squeeze(1).to(
+        torch.int32)
+    nvec, gated = refine.normal_fit(cand, g0, CFG)
+    gk, gp = _grid_copy(g0), _grid_copy(g0)
+    n0 = kernels.LAUNCHES["refine_lines"]
+    lk = refine.refine_lines(cand, nvec, gated, gk, CFG)
+    lp = refine.refine_lines_plain(cand, nvec, gated, gp, CFG)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_lines"] == n0 + 1
+    problems = checks.grid_problems(convert.grid_to_numpy(gk),
+                                    convert.grid_to_numpy(gp), CFG)
+    assert not problems, problems
+    # the links as (cell, candidate) pairs: lanes are sorted by line slot,
+    # and a new ghost cell may take another slot in each run (K2's race)
+    assert _links(gk, lk) == _links(gp, lp)
+    n_links = int((lk[0] >= 0).sum())
+    assert n_links > 0
+    assert (int(gk.overflow_dep) > int(g0.overflow_dep)) == cap
+
+    bc = int(gk.buf_count)
+    bslot, border = torch.sort(gk.buf_slot[:bc], stable=True)
+    bpts = gk.buf_pts[:, :bc][:, border].contiguous()
+    rk = dataclasses.replace(gk, cyl_stats=gk.cyl_stats.clone())
+    rp = dataclasses.replace(gk, cyl_stats=gk.cyl_stats.clone())
+    n0 = kernels.LAUNCHES["buffer_replay"]
+    refine.buffer_replay(*lk, cand, nvec, bslot, bpts, rk, CFG)
+    refine.buffer_replay_plain(*lk, cand, nvec, bslot, bpts, rp, CFG)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["buffer_replay"] == n0 + 1
+    ok, err = checks.cyl_stats_error(rk.cyl_stats.cpu().numpy(),
+                                     rp.cyl_stats.cpu().numpy(),
+                                     CFG.cylinder_radius)
+    assert ok, err
+    hits = rk.cyl_stats.view(-1, 5)[:, 4] - gk.cyl_stats.view(-1, 5)[:, 4]
+    assert float(hits.sum()) > 0
+
+
+def test_integrate_reads_nothing_and_refine_reads_once(state):
+    """On the card an integrate dispatch enqueues everything without a
+    synchronizing call, and a refine makes exactly one (its count read)."""
+    import warnings
+    pipe, grid, rays, b = state
+    g = _grid_copy(grid)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.step_batch_depth(g, *b, rays)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipe.refine(g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert int(g.normal_found.sum()) > int(grid.normal_found.sum())

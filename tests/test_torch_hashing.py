@@ -120,3 +120,71 @@ def test_counter_form_rejects_bad_counters():
                 torch.zeros((1,), dtype=torch.int32)):
         with pytest.raises(ValueError):
             hashing.lookup_or_insert(key, ids, 8, 16, bad)
+
+
+@pytest.mark.parametrize("max_probes", [32, 2])
+def test_sentinel_lanes_vs_jax(max_probes):
+    """K2's plain version on a budget-sized array whose INVALID_ID lanes
+    hold no id (the integrate's run ids past U, the refine's non-start line
+    lanes) against the JAX package's find-or-insert of the same ids with
+    those lanes inactive: the same id set in the table, every id at a slot
+    holding it, sentinel lanes -1, and the same failure count under a
+    tight probe bound (a half-full 256-slot table)."""
+    C = 1 << 8 if max_probes == 2 else 1 << 12
+    ids = RNG.choice(2 ** 30, 200, replace=False).astype(np.int32)
+    lanes = np.full(3 * ids.size, hashing.INVALID_ID, np.int32)
+    lanes[1::3] = ids
+    key = torch.full((C,), -1, dtype=torch.int32)
+    slot, failed = hashing.lookup_or_insert(key, torch.from_numpy(lanes),
+                                            max_probes, C)
+    active = lanes != hashing.INVALID_ID
+    jkey, jslot, jfailed = jhash.lookup_or_insert(
+        jnp.full((C + lanes.size,), -1, jnp.int32), jnp.asarray(lanes),
+        jnp.asarray(active), max_probes, C, unique_ids=True)
+    slot, key = slot.numpy(), key.numpy()
+    jslot, jkey = np.asarray(jslot), np.asarray(jkey)[:C]
+    assert int(failed) == int(jfailed)
+    assert (int(failed) > 0) == (max_probes == 2)
+    assert (slot[~active] == -1).all()
+    placed = slot >= 0
+    np.testing.assert_array_equal(key[slot[placed]], lanes[placed])
+    np.testing.assert_array_equal(placed[active], (jslot >= 0)[active])
+    np.testing.assert_array_equal(np.sort(key[key >= 0]),
+                                  np.sort(jkey[jkey >= 0]))
+
+
+@pytest.mark.parametrize("n_live", [0, 150, 200])
+def test_live_count_vs_jax(n_live):
+    """K2's plain version on a budget-sized array whose ids are packed
+    before a live count (the integrate's run ids) and whose lanes past it
+    hold stale ids: only the lanes before the count are inserted, the rest
+    get -1 and touch neither the table nor the failure count.  Against the
+    JAX package's find-or-insert of the same lanes with the ones past the
+    count inactive."""
+    C = 1 << 12
+    lanes = RNG.choice(2 ** 30, 400, replace=False).astype(np.int32)
+    key = torch.full((C,), -1, dtype=torch.int32)
+    slot, failed = hashing.lookup_or_insert(
+        key, torch.from_numpy(lanes), 32, C,
+        n_live=torch.tensor(n_live, dtype=torch.int32))
+    active = np.arange(lanes.size) < n_live
+    jkey, jslot, jfailed = jhash.lookup_or_insert(
+        jnp.full((C + lanes.size,), -1, jnp.int32), jnp.asarray(lanes),
+        jnp.asarray(active), 32, C, unique_ids=True)
+    slot, key = slot.numpy(), key.numpy()
+    jkey = np.asarray(jkey)[:C]
+    assert int(failed) == int(jfailed) == 0
+    assert (slot[~active] == -1).all() and (slot[active] >= 0).all()
+    np.testing.assert_array_equal(key[slot[active]], lanes[active])
+    np.testing.assert_array_equal(np.sort(key[key >= 0]),
+                                  np.sort(jkey[jkey >= 0]))
+    assert int((key >= 0).sum()) == n_live
+
+
+def test_live_count_rejects_bad_counts():
+    key = torch.full((16,), -1, dtype=torch.int32)
+    ids = torch.arange(4, dtype=torch.int32)
+    for bad in (torch.tensor(2, dtype=torch.int64),
+                torch.tensor([2], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            hashing.lookup_or_insert(key, ids, 8, 16, n_live=bad)

@@ -50,11 +50,14 @@ and prints no result line):
    sorted lanes into the grid carried through two batches and refines,
    against its plain version: every integer field, the integer-valued
    sums and viewpoints by cell id (K2 may pick other slots), the buffer
-   in order and K3's sorted lanes exactly; B6 (``refine.refine_lines``)
+   in order and K3's sorted lanes exactly, and a repeat on another copy
+   of the grid bit-identical by cell id; B6 (``refine.refine_lines``)
    and B7 (``refine.buffer_replay``) on the first refine of phase 4's
    sweep: the dependant lists in order, the counts and the links exactly,
    then B7's hit counts exactly and sums within ``checks.RTOL`` of the
-   terms; each with its counts, bound and share;
+   terms; each with its counts, bound and share; B6's library sort timed
+   alone on the pass's line-cell ids, its share taken on the rest of the
+   call (the hand passes with K2);
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -181,7 +184,7 @@ FRAMES = 96          # replay length (bench.py runs 100)
 ARC_FRAMES = 100     # pose spacing of bench.py's 100-frame sweep
 WIDTH, HEIGHT, FX = 640, 480, 900.0
 REPS = 5             # timed calls per slot of plain, kernel, kernel, plain
-SLEEP_CYCLES = 400_000   # ~0.2 ms of card time ahead of each timed call
+SLEEP_CYCLES = 2_000_000   # ~1 ms of card time ahead of each timed call
 
 KERNELS = {
     "depth_frontend": ("hifi_fusion_tpu_torch/csrc/depth_frontend.cu",
@@ -630,6 +633,24 @@ def kernel_split(torch, fn, setup) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def same_grid_bits(cfg, a, b) -> bool:
+    """Two grids on the card hold the same cells with bit-identical fields
+    (``checks.by_cell``, floats compared as their words) and the same
+    buffer in order."""
+    from hifi_fusion_tpu_torch import checks, convert
+    fa, fb = convert.grid_to_numpy(a), convert.grid_to_numpy(b)
+    ca, cb = checks.by_cell(fa, cfg), checks.by_cell(fb, cfg)
+
+    def words(v):
+        v = np.asarray(v)
+        return v.view(np.int32) if v.dtype == np.float32 else v
+
+    oa, ob = checks.ordered_rows(fa, cfg), checks.ordered_rows(fb, cfg)
+    return (all(np.array_equal(words(ca[k]), words(cb[k])) for k in ca)
+            and np.array_equal(oa["buffer"].view(np.int64),
+                               ob["buffer"].view(np.int64)))
+
+
 def check_integrate_lanes(torch, cfg, pipe, batch, rays) -> dict:
     """Phase 3, B3: the third K=8 batch's sorted lanes into the grid
     carried through two batches and two refines, against the plain
@@ -669,8 +690,15 @@ def check_integrate_lanes(torch, cfg, pipe, batch, rays) -> dict:
         "n_first": int(((grid.n_pts == 0) & (gk.n_pts > 0)).sum()),
         "n_words": int(torch.unique_consecutive(v >> 5).numel()),
         "n_want": int(gk.buf_count - grid.buf_count)}
+    # the same call again on another copy: bit-identical by cell id
+    g2 = setup()[0]
+    integrate.aggregate_lanes(g2, *setup()[1:])
+    torch.cuda.synchronize()
+    if not same_grid_bits(cfg, gk, g2):
+        raise AssertionError("integrate_lanes: a repeat differs")
     log(f"phase 3: integrate_lanes: {counts}; the grid, buffer order and "
-        f"K3's lanes exact against the plain version")
+        f"K3's lanes exact against the plain version, a repeat "
+        f"bit-identical")
     ms, pms = time_pair(torch, integrate.aggregate_lanes,
                         integrate.aggregate_lanes_plain,
                         lambda: cold(torch, *setup()))
@@ -726,10 +754,23 @@ def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
         f"exact against the plain version")
     ms, pms = time_pair(torch, refine.refine_lines, refine.refine_lines_plain,
                         lambda: cold(torch, *setup6()))
+    # the library sort alone, on the pass's line-cell ids (the kernel's
+    # points pass is bit-equal to line_cells); the hand passes are the
+    # rest, and the share is theirs
+    lid = torch.where(valid, lids, refine.INVALID_ID).contiguous()
+    sort_ms = device_ms(torch, lambda: torch.sort(lid, stable=True), tuple)
     split = kernel_split(torch, refine.refine_lines, setup6)
     log(f"phase 3: refine_lines by kernel, ms: {json.dumps(split)}")
-    res = {"refine_lines": {**timed(0.0, ms, pms, bounds.refine_lines(**c6)),
-                            **c6, "passes_ms": split}}
+    b6 = bounds.refine_lines(**c6)
+    hand_ms = ms - sort_ms
+    log(f"phase 3: refine_lines: {ms:.4f} ms, the library sort of "
+        f"{lid.numel()} ids {sort_ms:.4f} ms, the hand passes "
+        f"{hand_ms:.4f} ms, share {b6['bound_ms'] / hand_ms:.3f} of "
+        f"{b6['bound_ms']:.4f} ms")
+    res = {"refine_lines": {**timed(0.0, ms, pms, b6), **c6,
+                            "share": b6["bound_ms"] / hand_ms,
+                            "sort_ms": sort_ms, "hand_ms": hand_ms,
+                            "passes_ms": split}}
 
     bc = int(gk.buf_count)
     bslot, border = torch.sort(gk.buf_slot[:bc], stable=True)

@@ -32,14 +32,13 @@
 // max_probes gets slot -1; each block adds its count of those into the
 // caller's overflow counter with one atomic, and only when it is not 0,
 // so no fill or add launch follows.  Callers whose id count lives on the
-// card hand K2 arrays sized by their budgets, in one of two forms, so the
-// host never reads the count: B3 passes its run count (n_live, a device
-// int) and its ids packed before it, and the lanes at or past it are
-// neither read nor written (their slots are left as they were; a block
-// wholly past it returns at once); the refine's line cells (B6) pass the
-// sorted lanes with INVALID_ID (INT32_MAX, never a cell id) in every lane
-// that is not a run's first, and such a lane has no id: it gets slot -1
-// and is not counted.
+// card hand K2 arrays sized by their budgets, so the host never reads the
+// count: B3 and B6 pass their run count (n_live, a device int, from
+// scan.cuh's run scan) and their ids packed before it, and the lanes at or
+// past it are neither read nor written (their slots are left as they
+// were; a block wholly past it returns at once).  A lane holding
+// INVALID_ID (INT32_MAX, never a cell id) has no id: it gets slot -1 and
+// is not counted.
 // Slots may differ from the JAX package's lane-order election; callers
 // compare by cell id.
 

@@ -21,35 +21,49 @@
 // n_pts, normal_found and rgb_sum words, the viewpoint of a first
 // occupancy and an occupancy word; the sorted points and slots K3 reads
 // next and the appended buffer lanes are written: 135 MB at the bench's
-// third K=8 batch (bounds.integrate_lanes, chip_smoke.py phase 3).
+// third K=8 batch (bounds.integrate_lanes, chip_smoke.py phase 3).  The
+// gathers of the world points and colour in sorted order are most of the
+// work: each 4-byte lane reads a 32-byte sector of a frame-major array.
 //
-// Design: simple and right first, eight launches around K2 and no host
-// read.  Before K2 (launch_integrate_lanes_cells):
-//  1. meta: one thread finds n_act, the first INVALID lane of the whole
-//     sorted batch, by binary search, and adds max(n_act - NA, 0) plus
-//     the router's drops into overflow_active;
-//  2-4. a device-wide scan (scan.cuh) of the run-start flags over the NA
-//     lanes: every valid lane gets its run u, each run start writes the
-//     run's id and first lane (uids[u], ustart[u]), the last valid lane
-//     writes ustart[U] = n_sv, and U is left in scratch[0].
+// Design: three launches and a memset around K2, no host read, every lane
+// a thread of a tile (csrc/scan.cuh: a block a tile, the tiles' counts
+// chained by decoupled look-back, so each pass reads its lanes once).
+// Before K2 (launch_integrate_lanes_cells):
+//  0. one cudaMemsetAsync zeroes the scratch: U, the wanted total and the
+//     two scans' tile counters and look-back words;
+//  1. pass A, scan.cuh's run scan over the NA sorted lanes: each valid
+//     lane gets its run u, each run start writes the run's id and first
+//     lane (uids[u], ustart[u]), the last valid lane ustart[U] = n_sv and
+//     U into scratch[0]; the last tile's warp 0 finds n_act, the first
+//     INVALID lane of the whole sorted batch, by a 32-way search past NA
+//     and adds max(n_act - NA, 0) plus the router's drops into
+//     overflow_active.
 // Then K2 finds or inserts the run ids (hashing.lookup_or_insert), given
 // the NA-lane array and the device's U as its live count, so it touches
 // only the U ids.  After it (launch_integrate_lanes_append):
-//  5. runs: a thread per run (the threads past the device's U return);
-//     the cell's slot is its own (the ids are distinct), so Σrgb and the
-//     count are added into rgb_sum and n_pts without atomics, and they are
-//     exact in any order (integer-valued f32); the viewpoint of the run's
-//     first lane (its earliest frame) is stamped where the cell held no
-//     point; the cell's bitmap bit is set with atomicOr, exact for
-//     distinct ids; a run whose cell was placed and has no normal yet
-//     wants its lanes appended, want_len[u] = its length;
-//  6-8. a device-wide scan of want_len over the runs gives each run its
-//     offset among the wanted lanes, in sorted-lane order (the plain
-//     version's pts[:, want] order), and then a thread per lane writes
-//     the sorted point and slot that K3 streams (slot -1 past n_sv and for
-//     an unplaced cell) and, when buf_count + NA <= B (all or nothing),
-//     its wanted point at buf_count + rank;
-//  9. finish: one thread adds the wanted total to buf_count, or to
+//  2. pass B, a thread a lane.  The lanes' slots and the wanted flags
+//     (placed, no normal yet) come first: the count of wanted lanes is the
+//     scan the tiles chain, and a tile publishes its count before its
+//     gathers, so that its successors' look-back overlaps them.  Each
+//     lane then gathers its world point and colour once and writes the
+//     sorted point and slot that K3 streams (slot -1 past n_sv and for an
+//     unplaced cell).  A wanted lane's rank is its place among the wanted
+//     lanes in sorted-lane order, the plain version's pts[:, want] order;
+//     it is appended at buf_count + rank when buf_count + NA <= B (all or
+//     nothing; every tile reads buf_count before the finish may change
+//     it).  A run's first lane adds the run's length (ustart[u + 1] -
+//     ustart[u]) into n_pts, stamps its own frame's viewpoint (the run's
+//     earliest frame) where the cell held no point, and sets the cell's
+//     bitmap bit with atomicOr; no other lane writes those words, the run
+//     ids being distinct.  The colour sums are a segmented scan inside the
+//     tile: a run that lies in one tile is added into rgb_sum by its last
+//     lane, its only writer; each piece of a run that crosses a tile
+//     boundary is added by the piece's last lane with atomicAdd.  The sums
+//     are integer-valued f32, exact in any order and grouping while a
+//     cell's channel sum stays below 2^24 (65,793 lanes of colour 255),
+//     the plain version's limit too, so the grid is the plain version's
+//     bit for bit and the same in every run;
+//  3. finish: one thread adds the wanted total to buf_count, or to
 //     overflow_buf when the batch did not fit.
 // The slots K2 hands out may differ from the plain version's (the CAS race
 // against its first-in-input-order election); everything else is equal,
@@ -57,54 +71,40 @@
 
 #include "scan.cuh"
 
-constexpr int B3_THREADS = 256;
+// a lane's colour sums since the last run start within its tile
+// (segmented: a run start resets them)
+constexpr unsigned RUN_START = 1u;
 
-// the first lane of sorted ids[0, m) holding INVALID_ID, else m
-__device__ __forceinline__ long first_invalid(const int* ids, long m) {
-    long lo = 0, hi = m;
-    while (lo < hi) {
-        const long mid = (lo + hi) >> 1;
-        if (ids[mid] == INVALID_ID) hi = mid;
-        else lo = mid + 1;
+struct RunRgb {
+    unsigned start;     // RUN_START: the lanes hold a run start
+    float r, g, b;
+};
+
+struct RunRgbOp {
+    using T = RunRgb;
+    static __device__ __forceinline__ T identity() {
+        return {0u, 0.0f, 0.0f, 0.0f};
     }
-    return lo;
-}
-
-__global__ void b3_meta_kernel(const int* __restrict__ sid, long M, long NA,
-                               int extra_dropped,
-                               int* __restrict__ overflow_active) {
-    const long n_act = first_invalid(sid, M);
-    const long over = n_act > NA ? n_act - NA : 0;
-    if (over + extra_dropped != 0)
-        *overflow_active += (int)over + extra_dropped;
-}
-
-// the run-start scan over the NA sorted lanes
-struct RunStarts {
-    const int* sid;
-    long NA;
-    int* lane_run;     // (NA,) run of the lane, -1 past n_sv
-    int* uids;         // (NA,) run id, unset past U
-    int* ustart;       // (NA+1,) first lane of run u; ustart[U] = n_sv
-    __device__ bool valid(long i) const { return sid[i] != INVALID_ID; }
-    __device__ int count(long i) const {
-        return valid(i) && (i == 0 || sid[i - 1] != sid[i]);
-    }
-    __device__ void apply(long i, int prefix, int total) const {
-        const int start = count(i);
-        if (valid(i)) {
-            const int u = prefix + start - 1;
-            lane_run[i] = u;
-            if (start) {
-                uids[u] = sid[i];
-                ustart[u] = (int)i;
-            }
-            if (i + 1 == NA || !valid(i + 1)) ustart[total] = (int)(i + 1);
-        } else {
-            lane_run[i] = -1;
-        }
+    __device__ __forceinline__ T operator()(const T& a, const T& b) const {
+        if (b.start) return b;
+        return {a.start, __fadd_rn(a.r, b.r), __fadd_rn(a.g, b.g),
+                __fadd_rn(a.b, b.b)};
     }
 };
+
+// pass B's lanes a thread and a tile (kernels/__init__.py B3_TILE): with
+// two, 64 registers a thread and four blocks an SM keep enough gathers in
+// flight; four lanes a thread took 112 registers, two blocks an SM, and
+// ran the pass in 0.16 ms against 0.13 at the bench's third batch (one
+// H100 80GB HBM3, 700 W)
+constexpr int B3_ITEMS = 2;
+constexpr int B3_TILE = B3_ITEMS * SCAN_THREADS;
+
+// the scratch's ints: [U, n_want, pass A's look-back, pass B's]
+static inline long b3_scratch_words(long NA) {
+    return 2 + lookback_words(NA, RUN_SCAN_TILE)
+           + lookback_words(NA, B3_TILE);
+}
 
 struct Grid3 {
     float* n_pts;
@@ -114,88 +114,126 @@ struct Grid3 {
     unsigned* occ_bits;
 };
 
-__global__ void __launch_bounds__(B3_THREADS)
-b3_runs_kernel(const int* __restrict__ U_dev, long NA,
-               const int* __restrict__ uids, const int* __restrict__ ustart,
-               const int* __restrict__ uslot,
-               const long* __restrict__ order, const float* __restrict__ rgb,
-               long M, int N, const float* __restrict__ poses,
-               int store_color, Grid3 g, int* __restrict__ want_len) {
-    const long u = (long)blockIdx.x * B3_THREADS + threadIdx.x;
-    if (u >= NA || u >= *U_dev) return;
-    const int s = uslot[u];
-    const int lo = ustart[u], hi = ustart[u + 1];
-    int want = 0;
-    if (s >= 0) {
-        const bool occ0 = g.n_pts[s] > 0.0f;
-        const bool nf0 = g.normal_found[s] != 0;
-        if (store_color) {
-            float acc[3] = {0.f, 0.f, 0.f};
-            for (int k = lo; k < hi; ++k) {
-                const long o = order[k];
-                for (int a = 0; a < 3; ++a)
-                    acc[a] = __fadd_rn(acc[a], rgb[(long)a * M + o]);
-            }
-            for (int a = 0; a < 3; ++a)
-                g.rgb_sum[3L * s + a] = __fadd_rn(g.rgb_sum[3L * s + a],
-                                                  acc[a]);
-        }
-        g.n_pts[s] = __fadd_rn(g.n_pts[s], (float)(hi - lo));
-        if (!occ0) {
-            const float* T = poses + 16L * (order[lo] / N);
-            for (int a = 0; a < 3; ++a) g.viewpoint[3L * s + a] = T[4 * a + 3];
-        }
-        const int id = uids[u];
-        atomicOr(g.occ_bits + (id >> 5), 1u << (id & 31));
-        want = nf0 ? 0 : hi - lo;
-    }
-    want_len[u] = want;
-}
+constexpr int LANE_STARTS_RUN = 1, LANE_ENDS_RUN = 2, LANE_WANTED = 4;
 
-// the wanted-lane scan over the runs
-struct WantRuns {
-    const int* U_dev;
-    const int* want_len;
-    int* want_off;
-    __device__ int count(long u) const {
-        return u < *U_dev ? want_len[u] : 0;
-    }
-    __device__ void apply(long u, int prefix, int) const {
-        want_off[u] = prefix;
-    }
-};
-
-__global__ void __launch_bounds__(B3_THREADS)
-b3_lanes_kernel(long NA, const int* __restrict__ lane_run,
-                const int* __restrict__ uslot, const int* __restrict__ ustart,
-                const int* __restrict__ want_len,
-                const int* __restrict__ want_off,
+__global__ void __launch_bounds__(SCAN_THREADS)
+b3_lanes_kernel(long NA, long M, int N, int tiles,
+                const int* __restrict__ lane_run,
+                const int* __restrict__ uids, const int* __restrict__ ustart,
+                const int* __restrict__ uslot,
                 const long* __restrict__ order,
-                const float* __restrict__ world, long M,
+                const float* __restrict__ world,
+                const float* __restrict__ rgb,
+                const float* __restrict__ poses, int store_color, Grid3 g,
                 float* __restrict__ pts, int* __restrict__ slot_pt,
                 float* __restrict__ buf_pts, int* __restrict__ buf_slot,
-                const int* __restrict__ buf_count, long B) {
-    const long i = (long)blockIdx.x * B3_THREADS + threadIdx.x;
-    if (i >= NA) return;
-    const int u = lane_run[i];
-    if (u < 0) {
-        slot_pt[i] = -1;
-        for (int a = 0; a < 3; ++a) pts[a * NA + i] = 0.0f;
-        return;
-    }
-    const int s = uslot[u];
-    const long o = order[i];
-    float p[3];
-    for (int a = 0; a < 3; ++a) {
-        p[a] = world[a * M + o];
-        pts[a * NA + i] = p[a];
-    }
-    slot_pt[i] = s;
+                const int* __restrict__ buf_count, long B,
+                int* __restrict__ n_want, int* __restrict__ scratch) {
+    const LookBack lb(scratch, tiles);
+    const int tile = next_tile(lb.counter);
+    const long tile_base = (long)tile * B3_TILE;
+    const long base = tile_base + threadIdx.x;
     const long bc = *buf_count;
-    if (want_len[u] > 0 && bc + NA <= B) {
-        const long at = bc + want_off[u] + (i - ustart[u]);
-        for (int a = 0; a < 3; ++a) buf_pts[a * B + at] = p[a];
-        buf_slot[at] = s;
+    int u[B3_ITEMS], s[B3_ITEMS], flags[B3_ITEMS], want[B3_ITEMS];
+    long o[B3_ITEMS];
+    // the lanes' runs, order and slots, then the wanted lanes: their count
+    // is the scan the tiles chain, published before the gathers
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        const long i = base + k * SCAN_THREADS;
+        u[k] = i < NA ? lane_run[i] : -1;
+        const int prev = i > 0 && i < NA ? lane_run[i - 1] : -1;
+        const int next = i + 1 < NA ? lane_run[i + 1] : -1;
+        flags[k] = u[k] < 0 ? 0
+                   : (prev != u[k] ? LANE_STARTS_RUN : 0)
+                     | (next != u[k] ? LANE_ENDS_RUN : 0);
+        o[k] = u[k] >= 0 ? order[i] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) s[k] = u[k] >= 0 ? uslot[u[k]] : -1;
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        want[k] = s[k] >= 0 && g.normal_found[s[k]] == 0;
+        if (want[k]) flags[k] |= LANE_WANTED;
+    }
+    const int n_tile = tile_scan(SumOp(), want);     // want: tile-inclusive
+    if (threadIdx.x == 0 && tile > 0) lb.publish_aggregate(tile, n_tile);
+    // the gathers: each lane's world point and colour, once
+    float p[B3_ITEMS][3];
+    RunRgb c[B3_ITEMS];
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        for (int a = 0; a < 3; ++a)
+            p[k][a] = u[k] >= 0 ? world[a * M + o[k]] : 0.0f;
+        c[k] = RunRgbOp::identity();
+        if (flags[k] & LANE_STARTS_RUN) c[k].start = RUN_START;
+        if (store_color && u[k] >= 0) {
+            c[k].r = rgb[o[k]];
+            c[k].g = rgb[M + o[k]];
+            c[k].b = rgb[2 * M + o[k]];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        const long i = base + k * SCAN_THREADS;
+        if (i < NA) {
+            for (int a = 0; a < 3; ++a) pts[a * NA + i] = p[k][a];
+            slot_pt[i] = s[k];
+        }
+    }
+    if (store_color) tile_scan(RunRgbOp(), c);       // c: within the tile
+    const int before = tile_prefix(lb, tile, n_tile);
+    if (tile == tiles - 1 && threadIdx.x == 0) *n_want = before + n_tile;
+    // the cells: a run's first lane adds its count and stamps the
+    // viewpoint, the last lane of each of its pieces in a tile its colour
+    float n0[B3_ITEMS], vp[B3_ITEMS][3], sums[B3_ITEMS][3];
+    int len[B3_ITEMS], id[B3_ITEMS];
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        const long i = base + k * SCAN_THREADS;
+        if (s[k] < 0) continue;
+        if (flags[k] & LANE_STARTS_RUN) {
+            n0[k] = g.n_pts[s[k]];
+            len[k] = ustart[u[k] + 1] - (int)i;
+            id[k] = uids[u[k]];
+            const float* T = poses + 16L * ((unsigned)o[k] / (unsigned)N);
+            for (int a = 0; a < 3; ++a) vp[k][a] = T[4 * a + 3];
+        }
+        if (store_color && (flags[k] & LANE_ENDS_RUN) && c[k].start)
+            for (int a = 0; a < 3; ++a) sums[k][a] = g.rgb_sum[3L * s[k] + a];
+    }
+    const bool fits = bc + NA <= B;
+#pragma unroll
+    for (int k = 0; k < B3_ITEMS; ++k) {
+        const long i = base + k * SCAN_THREADS;
+        if ((flags[k] & LANE_WANTED) && fits) {
+            const long at = bc + before + want[k] - 1;
+            for (int a = 0; a < 3; ++a) buf_pts[a * B + at] = p[k][a];
+            buf_slot[at] = s[k];
+        }
+        if (s[k] < 0) continue;
+        const long cs = 3L * s[k];
+        if (flags[k] & LANE_STARTS_RUN) {
+            g.n_pts[s[k]] = __fadd_rn(n0[k], (float)len[k]);
+            if (!(n0[k] > 0.0f))
+                for (int a = 0; a < 3; ++a) g.viewpoint[cs + a] = vp[k][a];
+            atomicOr(g.occ_bits + (id[k] >> 5), 1u << (id[k] & 31));
+        }
+        if (!store_color) continue;
+        const bool piece_ends =
+            (flags[k] & LANE_ENDS_RUN) || i == tile_base + B3_TILE - 1;
+        if (!piece_ends) continue;
+        if ((flags[k] & LANE_ENDS_RUN) && c[k].start) {
+            // the whole run lies in this tile: its one writer
+            g.rgb_sum[cs] = __fadd_rn(sums[k][0], c[k].r);
+            g.rgb_sum[cs + 1] = __fadd_rn(sums[k][1], c[k].g);
+            g.rgb_sum[cs + 2] = __fadd_rn(sums[k][2], c[k].b);
+        } else {
+            // a piece of a run that crosses a tile boundary
+            atomicAdd(g.rgb_sum + cs, c[k].r);
+            atomicAdd(g.rgb_sum + cs + 1, c[k].g);
+            atomicAdd(g.rgb_sum + cs + 2, c[k].b);
+        }
     }
 }
 
@@ -206,53 +244,47 @@ __global__ void b3_finish_kernel(const int* __restrict__ n_want, long NA,
     else *overflow_buf += *n_want;
 }
 
-// Before K2: overflow_active, the runs of the NA sorted lanes, the run
-// ids and first lanes.  scratch: ints laid out as
-// [U, n_want, tiles...] (2 + scan_tiles_needed(NA)).
+// Before K2: the scratch zeroed, then pass A: overflow_active, the runs of
+// the NA sorted lanes, the run ids and first lanes, U in scratch[0].
+// ``scratch`` holds ``words`` ints, at least b3_scratch_words(NA).
 extern "C" int launch_integrate_lanes_cells(
         const void* sid, long M, long NA, int extra_dropped,
         void* overflow_active, void* lane_run, void* uids, void* ustart,
-        void* scratch, void* stream) {
+        void* scratch, long words, void* stream) {
+    if (words < b3_scratch_words(NA)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    b3_meta_kernel<<<1, 1, 0, st>>>((const int*)sid, M, NA, extra_dropped,
-                                    (int*)overflow_active);
-    if (NA > 0) {
-        int* sc = (int*)scratch;
-        RunStarts op{(const int*)sid, NA, (int*)lane_run, (int*)uids,
-                     (int*)ustart};
-        device_scan(op, NA, sc + 2, sc, st);
-    }
+    int* sc = (int*)scratch;
+    const cudaError_t e =
+        cudaMemsetAsync(sc, 0, b3_scratch_words(NA) * sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+    run_scan((const int*)sid, M, NA, extra_dropped, (int*)overflow_active,
+             (int*)lane_run, (int*)uids, (int*)ustart, sc, sc + 2, st);
     return (int)cudaGetLastError();
 }
 
-// After K2 (uslot): the per-cell sums, viewpoint, bitmap, the buffer
-// append, and the sorted points and slots for K3.
+// After K2 (uslot): pass B (the sorted points and slots for K3, the
+// per-cell sums, viewpoint and bitmap, the buffer append) and the finish.
 extern "C" int launch_integrate_lanes_append(
         long NA, long M, int N, const void* lane_run, const void* uids,
         const void* ustart, const void* uslot, const void* order,
         const void* world, const void* rgb, const void* poses,
         int store_color, void* n_pts, const void* normal_found,
-        void* rgb_sum, void* viewpoint, void* occ_bits, void* want_len,
-        void* want_off, void* pts, void* slot_pt, void* buf_pts,
-        void* buf_slot, void* buf_count, long B, void* overflow_buf,
-        void* scratch, void* stream) {
+        void* rgb_sum, void* viewpoint, void* occ_bits, void* pts,
+        void* slot_pt, void* buf_pts, void* buf_slot, void* buf_count,
+        long B, void* overflow_buf, void* scratch, void* stream) {
     if (NA == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     int* sc = (int*)scratch;
-    const int blocks = grid_blocks(NA, B3_THREADS);
+    const int tiles = grid_blocks(NA, B3_TILE);
     Grid3 g{(float*)n_pts, (const unsigned char*)normal_found,
             (float*)rgb_sum, (float*)viewpoint, (unsigned*)occ_bits};
-    b3_runs_kernel<<<blocks, B3_THREADS, 0, st>>>(
-        sc, NA, (const int*)uids, (const int*)ustart, (const int*)uslot,
-        (const long*)order, (const float*)rgb, M, N, (const float*)poses,
-        store_color, g, (int*)want_len);
-    WantRuns op{sc, (const int*)want_len, (int*)want_off};
-    device_scan(op, NA, sc + 2, sc + 1, st);
-    b3_lanes_kernel<<<blocks, B3_THREADS, 0, st>>>(
-        NA, (const int*)lane_run, (const int*)uslot, (const int*)ustart,
-        (const int*)want_len, (const int*)want_off, (const long*)order,
-        (const float*)world, M, (float*)pts, (int*)slot_pt,
-        (float*)buf_pts, (int*)buf_slot, (const int*)buf_count, B);
+    b3_lanes_kernel<<<tiles, SCAN_THREADS, 0, st>>>(
+        NA, M, N, tiles, (const int*)lane_run, (const int*)uids,
+        (const int*)ustart, (const int*)uslot, (const long*)order,
+        (const float*)world, (const float*)rgb, (const float*)poses,
+        store_color, g, (float*)pts, (int*)slot_pt, (float*)buf_pts,
+        (int*)buf_slot, (const int*)buf_count, B, sc + 1,
+        sc + 2 + lookback_words(NA, RUN_SCAN_TILE));
     b3_finish_kernel<<<1, 1, 0, st>>>(sc + 1, NA, B, (int*)buf_count,
                                       (int*)overflow_buf);
     return (int)cudaGetLastError();

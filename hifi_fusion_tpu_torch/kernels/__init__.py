@@ -99,26 +99,25 @@ _SIGNATURES = {
     # totals, budget, K, n, Bs_max, out, present, stream
     "launch_route_fill": [_P, _P, _I, _I, _I, _P, _P, _P],
     # sid, M, NA, extra_dropped, overflow_active, lane_run, uids, ustart,
-    # scratch, stream
+    # scratch, words, stream
     "launch_integrate_lanes_cells": [_P, _L, _L, _I, _P, _P, _P, _P, _P,
-                                     _P],
+                                     _L, _P],
     # NA, M, N, lane_run, uids, ustart, uslot, order, world, rgb, poses,
-    # store_color, n_pts, normal_found, rgb_sum, viewpoint, occ_bits,
-    # want_len, want_off, pts, slot_pt, buf_pts, buf_slot, buf_count, B,
-    # overflow_buf, scratch, stream
+    # store_color, n_pts, normal_found, rgb_sum, viewpoint, occ_bits, pts,
+    # slot_pt, buf_pts, buf_slot, buf_count, B, overflow_buf, scratch,
+    # stream
     "launch_integrate_lanes_append": [_L, _L, _I, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _P, _P, _L, _P, _P,
-                                      _P],
+                                      _P, _P, _P, _P, _L, _P, _P, _P],
     # cand, U, L, line_k, res0, key, nvec, gated, geo_f, geo_i, lid, stream
     "launch_refine_lines_points": [_P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                                    _P, _P],
-    # sid, P, start_ids, stream
-    "launch_refine_lines_starts": [_P, _L, _P, _P],
-    # sid, lane, start_ids, kslot, P, U, cand, D, dep, dep_count,
-    # overflow_dep, ls, lu, stream
-    "launch_refine_lines_append": [_P, _P, _P, _P, _L, _I, _P, _I, _P, _P,
-                                   _P, _P, _P, _P],
+    # sid, P, lane_run, uids, ustart, scratch, words, stream
+    "launch_refine_lines_cells": [_P, _L, _P, _P, _P, _P, _L, _P],
+    # lane, lane_run, ustart, kslot, n_runs, P, U, cand, D, dep, dep_count,
+    # overflow_dep, rebase, ls, lu, stream
+    "launch_refine_lines_append": [_P, _P, _P, _P, _P, _L, _I, _P, _I, _P,
+                                   _P, _P, _P, _P, _P, _P],
     # ls, lu, P, cand, U, nvec, key, bslot, bpts, bc, geo_f, geo_i, radius,
     # cyl_stats, stream
     "launch_buffer_replay": [_P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _P,
@@ -252,13 +251,18 @@ def geometry_args(config, offset=None):
     return f, i
 
 
-SCAN_TILE = 2048     # lanes a tile of csrc/scan.cuh's device-wide scan
+# lanes a tile of csrc/scan.cuh's run scan (RUN_SCAN_TILE) and of B3's
+# pass B (csrc/integrate_lanes.cu B3_TILE)
+RUN_SCAN_TILE = 4096
+B3_TILE = 512
 
 
-def scan_tiles(n: int) -> int:
-    """The tile sums a device-wide scan over ``n`` lanes keeps in its
-    scratch (csrc/scan.cuh scan_tiles_needed)."""
-    return max(-(-n // SCAN_TILE), 1)
+def lookback_words(n: int, tile: int) -> int:
+    """The ints of scratch one look-back count scan over ``n`` lanes in
+    tiles of ``tile`` lanes keeps (csrc/scan.cuh lookback_words): the tile
+    counter, then each tile's aggregate and inclusive prefix, 64-bit
+    words."""
+    return 2 * (1 + 2 * max(-(-n // tile), 1))
 
 
 def ptr(a) -> int:

@@ -11,11 +11,10 @@ else in a returned count.
 tensor and its plain version on a CPU tensor.  Either may assign other
 slots than the JAX package's lane-order election; every comparison is by
 cell id.  A caller whose id count stays on the card hands K2 an array
-sized by its lane budget, in one of two forms: its ids packed first with
-their count as a device int (``n_live``; the integrate's run ids), or
-``INVALID_ID`` (INT32_MAX, never a cell id) in every lane without an id
-(the refine's line-cell run starts), which gets slot -1 and is not counted
-as a failure.
+sized by its lane budget with its ids packed first and their count as a
+device int (``n_live``; the integrate's run ids and the refine's line
+cells).  A lane holding ``INVALID_ID`` (INT32_MAX, never a cell id) has no
+id: it gets slot -1 and is not counted as a failure.
 """
 
 from __future__ import annotations

@@ -402,7 +402,12 @@ def aggregate_lanes(grid: GridState, sid: torch.Tensor, order: torch.Tensor,
 
     Kernel B3 (``csrc/integrate_lanes.cu``, counted as
     ``integrate_lanes``) with K2 on CUDA tensors, reading nothing back to
-    the host; its plain version on CPU tensors.  The slots may differ
+    the host: a memset of its scratch and pass A (the runs of the sorted
+    lanes, a look-back scan) before K2; after it pass B, a thread a lane
+    (the sorted points and slots, the buffer ranks from a look-back count
+    of the wanted lanes, each run's count and viewpoint by its first
+    lane, its colour summed inside each tile it spans) and a one-thread
+    finish.  Its plain version on CPU tensors.  The slots may differ
     (K2's CAS race); the grid is the same by cell id."""
     M = sid.numel()
     dev = sid.device
@@ -426,7 +431,9 @@ def aggregate_lanes(grid: GridState, sid: torch.Tensor, order: torch.Tensor,
         return torch.empty((n,), dtype=i32, device=dev)
 
     lane_run, uids, ustart = ints(NA), ints(NA), ints(NA + 1)
-    scratch = ints(2 + kernels.scan_tiles(NA))
+    words = (2 + kernels.lookback_words(NA, kernels.RUN_SCAN_TILE)
+             + kernels.lookback_words(NA, kernels.B3_TILE))
+    scratch = ints(words)            # [U, n_want, the two look-backs]
     pts = torch.empty((3, NA), dtype=torch.float32, device=dev)
     slot_pt = ints(NA)
     lib = kernels.library()
@@ -434,14 +441,13 @@ def aggregate_lanes(grid: GridState, sid: torch.Tensor, order: torch.Tensor,
     kernels.check(lib.launch_integrate_lanes_cells(
         sid.data_ptr(), M, NA, int(extra_dropped),
         grid.overflow_active.data_ptr(), lane_run.data_ptr(),
-        uids.data_ptr(), ustart.data_ptr(), scratch.data_ptr(), st),
+        uids.data_ptr(), ustart.data_ptr(), scratch.data_ptr(), words, st),
         "integrate_lanes")
     if NA:
         uslot = hashing.lookup_or_insert(grid.key, uids, config.max_probes,
                                          config.capacity,
                                          grid.overflow_probe,
                                          n_live=scratch[0])
-        want_len, want_off = ints(NA), ints(NA)
         kernels.check(lib.launch_integrate_lanes_append(
             NA, M, N, lane_run.data_ptr(), uids.data_ptr(),
             ustart.data_ptr(), uslot.data_ptr(), order.data_ptr(),
@@ -449,8 +455,7 @@ def aggregate_lanes(grid: GridState, sid: torch.Tensor, order: torch.Tensor,
             int(config.store_color), grid.n_pts.data_ptr(),
             grid.normal_found.data_ptr(), grid.rgb_sum.data_ptr(),
             grid.viewpoint.data_ptr(), grid.occ_bits.data_ptr(),
-            want_len.data_ptr(), want_off.data_ptr(), pts.data_ptr(),
-            slot_pt.data_ptr(), grid.buf_pts.data_ptr(),
+            pts.data_ptr(), slot_pt.data_ptr(), grid.buf_pts.data_ptr(),
             grid.buf_slot.data_ptr(), grid.buf_count.data_ptr(),
             config.buffer_capacity, grid.overflow_buf.data_ptr(),
             scratch.data_ptr(), st), "integrate_lanes")

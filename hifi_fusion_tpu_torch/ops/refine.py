@@ -197,10 +197,14 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
 
     Kernel B6 (``csrc/refine_lines.cu``) with K2 and a library sort on
     CUDA tensors, reading nothing back to the host, its groups in cell-id
-    order; its plain version on CPU tensors, grouped by slot as the JAX
-    package groups them.  Line slots may differ (K2's CAS race); the cells,
-    the dependant lists in order and the set of links are the same by cell
-    id."""
+    order: the line points (32-bit index arithmetic; P = L*U must stay
+    under 2^31), the stable sort by cell id, the run scan (look-back) that
+    compacts the line cells for K2 with their count on the card, a thread
+    a run that reserves each cell's dependant slots and a thread a lane
+    that writes the links.  Its plain version on CPU tensors, grouped by
+    slot as the JAX package groups them.  Line slots may differ (K2's CAS
+    race); the cells, the dependant lists in order and the set of links
+    are the same by cell id."""
     dev = grid.device
     U = cand.numel()
     kernels.check_inputs(dev, ("cand", cand, torch.int32, (U,)),
@@ -212,6 +216,8 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     i32 = torch.int32
     P = config.n_line * U
+    if P >= 1 << 31:
+        raise ValueError(f"{P} line lanes: kernel B6 indexes in 32 bits")
     ls = torch.empty((P,), dtype=i32, device=dev)
     lu = torch.empty((P,), dtype=i32, device=dev)
     if P == 0:
@@ -219,23 +225,33 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
     gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     st = kernels.stream()
-    lid = torch.empty((P,), dtype=i32, device=dev)
+
+    def ints(n):
+        return torch.empty((n,), dtype=i32, device=dev)
+
+    lid = ints(P)
     kernels.check(lib.launch_refine_lines_points(
         cand.data_ptr(), U, config.n_line, config.line_k,
         float(config.resolution[0]), grid.key.data_ptr(), nvec.data_ptr(),
         gated.data_ptr(), kernels.ptr(gf), kernels.ptr(gi), lid.data_ptr(),
         st), "refine_lines")
     sid, lane = torch.sort(lid, stable=True)
-    starts = torch.empty((P,), dtype=i32, device=dev)
-    kernels.check(lib.launch_refine_lines_starts(
-        sid.data_ptr(), P, starts.data_ptr(), st), "refine_lines")
-    kslot = hashing.lookup_or_insert(grid.key, starts, config.max_probes,
-                                     config.capacity, grid.overflow_probe)
+    lane_run, uids, ustart = ints(P), ints(P), ints(P + 1)
+    words = 2 + kernels.lookback_words(P, kernels.RUN_SCAN_TILE)
+    scratch = ints(words)            # [U, unused, the run scan's look-back]
+    kernels.check(lib.launch_refine_lines_cells(
+        sid.data_ptr(), P, lane_run.data_ptr(), uids.data_ptr(),
+        ustart.data_ptr(), scratch.data_ptr(), words, st), "refine_lines")
+    kslot = hashing.lookup_or_insert(grid.key, uids, config.max_probes,
+                                     config.capacity, grid.overflow_probe,
+                                     n_live=scratch[0])
+    rebase = ints(P)
     kernels.check(lib.launch_refine_lines_append(
-        sid.data_ptr(), lane.data_ptr(), starts.data_ptr(),
-        kslot.data_ptr(), P, U, cand.data_ptr(), config.max_dependants,
-        grid.dep.data_ptr(), grid.dep_count.data_ptr(),
-        grid.overflow_dep.data_ptr(), ls.data_ptr(), lu.data_ptr(), st),
+        lane.data_ptr(), lane_run.data_ptr(), ustart.data_ptr(),
+        kslot.data_ptr(), scratch.data_ptr(), P, U, cand.data_ptr(),
+        config.max_dependants, grid.dep.data_ptr(),
+        grid.dep_count.data_ptr(), grid.overflow_dep.data_ptr(),
+        rebase.data_ptr(), ls.data_ptr(), lu.data_ptr(), st),
         "refine_lines")
     kernels.LAUNCHES["refine_lines"] += 1
     return ls, lu

@@ -54,7 +54,9 @@ JSON line.  The inputs are built through that checkout's own paths, with
 * ``integrate_lanes``, ``refine_lines``, ``buffer_replay``: B3 on the
   third batch into the carried grid, B6 and B7 on the first refine
   (``chip_smoke.check_integrate_lanes`` and ``check_refine_kernels``,
-  each held to its plain version there), for a checkout that has them;
+  each held to its plain version there), for a checkout that has them,
+  with B6's library sort timed alone (``refine_lines/sort``) and the rest
+  of its call, the hand passes with K2 (``refine_lines/hand``);
 * ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``, ``sharded_mpts``: the
   96-frame replays of phases 4, 6, 7 and 14's routed one (4 shards on the
   card; push to drain; ``process()`` follows, untimed; the planar one for
@@ -97,7 +99,8 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "neighbor_count/occupied", "depth_frontend/offset",
          "planar_frontend/offset", "route_pack/depth", "route_pack/planar",
          "route_exchange/depth", "route_exchange/planar",
-         "integrate_lanes", "refine_lines", "buffer_replay")
+         "integrate_lanes", "refine_lines", "refine_lines/sort",
+         "refine_lines/hand", "buffer_replay")
 
 
 def smoke():
@@ -220,12 +223,16 @@ def child(root: str) -> dict:
     # B3, B6, B7 (phase 3's checks and inputs), for a checkout with them
     for name in ("integrate_lanes", "refine_lines", "buffer_replay"):
         res[name] = None
+    res["refine_lines/sort"] = res["refine_lines/hand"] = None
     if hasattr(integrate, "aggregate_lanes"):
         res["integrate_lanes"] = cs.check_integrate_lanes(
             torch, cfg, pipe, batch, rays)["ms"]
         for name, r in cs.check_refine_kernels(torch, cfg, pipe, batch,
                                                rays).items():
             res[name] = r["ms"]
+            if name == "refine_lines":
+                res["refine_lines/sort"] = r["sort_ms"]
+                res["refine_lines/hand"] = r["hand_ms"]
     del pipe
     torch.cuda.empty_cache()
     # T1, K2 (tsdf)

@@ -208,3 +208,25 @@ def test_launcher_signatures_match_sources():
         params = [p.split() for p in decls[name].split(",")]
         got = ["p" if "*" in " ".join(p) else p[-2] for p in params]
         assert got == [kinds[a] for a in argtypes], name
+
+
+def test_scan_tiles_mirror_sources():
+    """The tile sizes and the look-back scratch the wrappers allocate
+    (``kernels.RUN_SCAN_TILE``, ``kernels.B3_TILE``,
+    ``kernels.lookback_words``) are the ones ``csrc`` declares: a smaller
+    allocation would let the scans write past the scratch on the card."""
+    import re
+    from hifi_fusion_tpu_torch import kernels
+    scan = (kernels.CSRC / "scan.cuh").read_text()
+    b3 = (kernels.CSRC / "integrate_lanes.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    threads = const(scan, "SCAN_THREADS")
+    assert kernels.RUN_SCAN_TILE == const(scan, "RUN_SCAN_ITEMS") * threads
+    assert kernels.B3_TILE == const(b3, "B3_ITEMS") * threads
+    assert "return 2 * (1 + 2L * grid_blocks(n, tile));" in scan
+    for n, tile, tiles in ((0, 512, 1), (512, 512, 1), (513, 512, 2),
+                           (2_457_600, 4096, 600)):
+        assert kernels.lookback_words(n, tile) == 2 * (1 + 2 * tiles)

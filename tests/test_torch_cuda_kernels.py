@@ -19,8 +19,8 @@ from hifi_fusion_tpu_torch.config import small_test_config
 from hifi_fusion_tpu_torch.grid import make_grid
 from hifi_fusion_tpu_torch.models import tsdf
 from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
-from hifi_fusion_tpu_torch.ops import (hashing, integrate, queries, refine,
-                                      scatter)
+from hifi_fusion_tpu_torch.ops import (geometry, hashing, integrate,
+                                      queries, refine, scatter)
 from hifi_fusion_tpu_torch.utils.synthetic import camera_rays, make_depth_sweep
 
 pytestmark = pytest.mark.cuda
@@ -907,6 +907,195 @@ def test_refine_lines_and_replay_match_plain(state, cap):
     assert ok, err
     hits = rk.cyl_stats.view(-1, 5)[:, 4] - gk.cyl_stats.view(-1, 5)[:, 4]
     assert float(hits.sum()) > 0
+
+
+def _b3_lanes(dev, grid, runs, n_invalid, K, seed):
+    """Synthetic sorted lanes for B3: ``runs`` lanes of each of len(runs)
+    distinct cells in ascending id order (about half of them cells the
+    grid holds), then ``n_invalid`` INVALID_ID lanes (more, so that K
+    divides the lanes); a random lane order, world points, integer colour
+    and poses.  Returns (sid, order, world, rgb, poses, N)."""
+    rng = np.random.default_rng(seed)
+    held = grid.key[grid.key >= 0].cpu().numpy()
+    n_cells = int(np.prod(CFG.dims))
+    ids = np.union1d(rng.choice(held, len(runs) // 2, replace=False),
+                     rng.choice(n_cells, len(runs), replace=False))
+    ids = np.sort(rng.choice(ids, len(runs), replace=False))
+    n_valid = int(sum(runs))
+    M = n_valid + n_invalid
+    M += -M % K
+    sid = np.full(M, hashing.INVALID_ID, np.int32)
+    sid[:n_valid] = np.repeat(ids, runs)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (put(sid), put(rng.permutation(M).astype(np.int64)),
+            put(rng.uniform(-0.3, 0.3, (3, M)).astype(np.float32)),
+            put(rng.integers(0, 256, (3, M)).astype(np.float32)),
+            put(rng.normal(size=(K, 4, 4)).astype(np.float32)), M // K)
+
+
+B3_CASES = ("one_run", "tile_ends", "ragged_budget", "na0", "k1",
+            "buffer_full", "no_color")
+
+
+@pytest.mark.parametrize("case", B3_CASES)
+def test_integrate_lanes_edge_shapes(state, case):
+    """B3 against its plain version on synthetic sorted lanes: one cell
+    holding every lane (a run across every tile), runs ending exactly on
+    tile boundaries, a budget NA that binds and is no multiple of the tile,
+    NA = 0, K = 1, a buffer that does not fit, no colour.  The tiles are
+    pass B's; pass A's are a multiple of them."""
+    pipe, grid, rays, b = state
+    T = kernels.B3_TILE
+    assert kernels.RUN_SCAN_TILE % T == 0
+    rng = np.random.default_rng(B3_CASES.index(case))
+    cfg = (dataclasses.replace(CFG, store_color=False) if case == "no_color"
+           else CFG)
+    K, n_invalid = (1 if case == "k1" else 4), 37
+    if case == "one_run":
+        runs = [3 * kernels.RUN_SCAN_TILE + 5]
+    elif case == "tile_ends":
+        runs, n_invalid = [T] * 3 + [T - 1, 1, 2 * T] + [1] * T + [T], 0
+    else:
+        runs = list(rng.integers(1, 40, 300))
+    sid, order, world, rgb, poses, N = _b3_lanes(pipe.device, grid, runs,
+                                                 n_invalid, K,
+                                                 seed=len(case))
+    n_valid, M = int(sum(runs)), sid.numel()
+    NA = {"ragged_budget": n_valid - 123, "na0": 0}.get(case, M)
+    assert case != "ragged_budget" or NA % T != 0
+    gk, gp = _grid_copy(grid), _grid_copy(grid)
+    if case == "buffer_full":
+        for g in (gk, gp):
+            g.buf_count.fill_(cfg.buffer_capacity - NA + 1)
+    n0 = kernels.LAUNCHES["integrate_lanes"]
+    pk, sk = integrate.aggregate_lanes(gk, sid, order, world, rgb, poses, N,
+                                       NA, cfg, extra_dropped=3)
+    pp, sp = integrate.aggregate_lanes_plain(gp, sid, order, world, rgb,
+                                             poses, N, NA, cfg, 3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["integrate_lanes"] == n0 + 1
+    assert _same_words(pk, pp)
+    assert torch.equal(_cells(gk, sk), _cells(gp, sp))
+    problems = checks.grid_problems(convert.grid_to_numpy(gk),
+                                    convert.grid_to_numpy(gp), cfg)
+    assert not problems, problems
+    added = int(gk.overflow_active) - int(grid.overflow_active)
+    assert added == max(n_valid - NA, 0) + 3
+    n_in = float((gk.n_pts - grid.n_pts).sum())
+    assert n_in == min(n_valid, NA)
+    if case == "buffer_full":
+        assert int(gk.overflow_buf) > int(grid.overflow_buf)
+    elif case != "na0":
+        assert int(gk.buf_count) > int(grid.buf_count)
+
+
+def _by_cell_words(g):
+    """``checks.by_cell`` of a grid with every float array as its 32-bit
+    words, so that equal means bit-identical."""
+    out = checks.by_cell(convert.grid_to_numpy(g), CFG)
+    return {k: v.view(np.int32) if isinstance(v, np.ndarray)
+            and v.dtype == np.float32 else v for k, v in out.items()}
+
+
+def test_integrate_lanes_repeat_bit_identical(state):
+    """Two B3 calls on copies of one grid with the same sorted lanes give
+    bit-identical grids by cell id (the look-back may combine the tiles'
+    sums in another grouping; integer-valued sums are exact in any) and
+    the same buffer in order."""
+    pipe, grid, rays, b = state
+    world, ids, rgb = integrate.depth_frontend(*b, rays, CFG)
+    sid, order = torch.sort(ids, stable=True)
+    M = ids.numel()
+    NA = min(4 * CFG.max_active_points, M)
+    got = []
+    for _ in range(2):
+        g = _grid_copy(grid)
+        integrate.aggregate_lanes(g, sid, order, world, rgb, b[3], M // 4,
+                                  NA, CFG)
+        got.append(g)
+    torch.cuda.synchronize()
+    a, c = (_by_cell_words(g) for g in got)
+    assert a.keys() == c.keys()
+    for k in a:
+        assert np.array_equal(a[k], c[k]), k
+    oa, oc = (checks.ordered_rows(convert.grid_to_numpy(g), CFG)
+              for g in got)
+    assert np.array_equal(oa["buffer"].view(np.int64),
+                          oc["buffer"].view(np.int64))
+
+
+def _links_in_order(g, links):
+    """The written links (ls >= 0) as (cell id, candidate) rows grouped by
+    cell id, each group in lane order, and the sorted candidates of the
+    lanes that wrote none."""
+    ls, lu = (t.cpu().numpy() for t in links)
+    key = g.key.cpu().numpy()
+    w = ls >= 0
+    cells = key[ls[w]]
+    at = np.argsort(cells, kind="stable")
+    return (np.stack([cells[at], lu[w][at]], axis=1),
+            np.sort(lu[~w]))
+
+
+B6_CASES = ("one_cell", "cap", "ungated", "u1")
+
+
+@pytest.mark.parametrize("case", B6_CASES)
+def test_refine_lines_edge_shapes(state, case):
+    """B6 against its plain version on synthetic candidates: lines of more
+    candidates than a run-scan tile has lanes converging on one cell (each
+    occupied cell four times, their normals scaled so that step k lands on
+    its center), every list filled to D - 1 so that D binds, every
+    candidate ungated, one candidate.  The grid by cell id with the
+    dependant lists in order, and the links by cell in lane order."""
+    pipe, grid, rays, b = state
+    dev = pipe.device
+    occ = torch.nonzero(grid.n_pts > 0).squeeze(1).to(torch.int32)
+    rng = np.random.default_rng(B6_CASES.index(case))
+    cand = {"u1": occ[:1], "one_cell": occ.repeat(4)}.get(case, occ)
+    U = cand.numel()
+    centers = geometry.center_of_ids(grid.key[cand.long()], CFG)
+    if case == "one_cell":
+        step = np.float32(CFG.line_k * CFG.resolution[0])
+        nvec = ((centers[:, :1] - centers)
+                / torch.tensor(step, device=dev)).contiguous()
+        assert U > kernels.RUN_SCAN_TILE
+    else:
+        n = rng.normal(size=(3, U))
+        nvec = torch.from_numpy((n / np.linalg.norm(n, axis=0)).astype(
+            np.float32)).to(dev)
+    gated = torch.full((U,), case != "ungated", dtype=torch.bool,
+                       device=dev)
+    g0 = _grid_copy(grid)
+    D = CFG.max_dependants
+    if case == "cap":
+        g0.dep_count.copy_(torch.where(g0.key >= 0,
+                                       g0.dep_count.clamp(min=D - 1),
+                                       g0.dep_count))
+    gk, gp = _grid_copy(g0), _grid_copy(g0)
+    n0 = kernels.LAUNCHES["refine_lines"]
+    lk = refine.refine_lines(cand, nvec, gated, gk, CFG)
+    lp = refine.refine_lines_plain(cand, nvec, gated, gp, CFG)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_lines"] == n0 + 1
+    problems = checks.grid_problems(convert.grid_to_numpy(gk),
+                                    convert.grid_to_numpy(gp), CFG)
+    assert not problems, problems
+    (rk, nk), (rp, np_) = _links_in_order(gk, lk), _links_in_order(gp, lp)
+    assert np.array_equal(rk, rp) and np.array_equal(nk, np_)
+    lids, valid = refine.line_cells(cand, nvec, gated, g0, CFG)
+    if case == "ungated":
+        assert rk.shape[0] == 0 and not bool(valid.any())
+    else:
+        assert rk.shape[0] > 0
+    if case == "one_cell":
+        longest = int(torch.unique(lids[valid], return_counts=True)[1].max())
+        assert longest > kernels.RUN_SCAN_TILE
+    if case in ("one_cell", "cap"):
+        assert int(gk.overflow_dep) > int(g0.overflow_dep)
 
 
 def test_integrate_reads_nothing_and_refine_reads_once(state):

@@ -19,9 +19,13 @@ visits one cell twice.  The cases:
 * integrate: the active-lane budget binding on the depth wire; the same
   on the planar wire with a router's ``extra_dropped``; a buffer append
   that does not fit (all or nothing, ``overflow_buf``); K=1; an empty
-  batch;
+  batch; a batch whose every lane falls in one cell (one run of NA lanes,
+  which kernel B3 splits across many tiles);
 * refine, with and without reclamation: the dependant cap binding
-  (``overflow_dep``, and which owners win) and lines that revisit a cell.
+  (``overflow_dep``, and which owners win) and lines that revisit a cell;
+  and the refine of a spherical shell, whose candidates' lines meet in
+  its center cell (a run of line lanes many times D long, which kernel
+  B6 splits across tiles).
 """
 
 import dataclasses
@@ -72,6 +76,33 @@ def _plane(seed, k=4):
     rgb = rng.integers(0, 256, (k, 3, N)).astype(np.float32)
     poses = np.broadcast_to(np.eye(4, dtype=np.float32), (k, 4, 4)).copy()
     return pts, rgb, (z > 0.06) & (z < 0.30), poses
+
+
+def _one_cell(seed, k=4):
+    """K planar frames of points all inside one cell (camera = world):
+    every valid lane of the batch is one run."""
+    rng = np.random.default_rng(seed)
+    pts = (np.array([0.005, 0.005, 0.105])[None, :, None]
+           + rng.uniform(-0.004, 0.004, (k, 3, N))).astype(np.float32)
+    rgb = rng.integers(0, 256, (k, 3, N)).astype(np.float32)
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (k, 4, 4)).copy()
+    return pts, rgb, np.ones((k, N), bool), poses
+
+
+def _shell(seed, k=4, r=0.035):
+    """K planar frames of points on a spherical shell of radius ``r``
+    (+-4 mm) around the center of one cell (camera = world): the shell's
+    fitted normals point at that cell, so the lines of many candidates
+    visit it."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(k, 3, N))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    rr = r + rng.uniform(-0.004, 0.004, (k, 1, N))
+    pts = (np.array([0.005, 0.005, 0.105])[None, :, None]
+           + rr * v).astype(np.float32)
+    rgb = rng.integers(0, 256, (k, 3, N)).astype(np.float32)
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (k, 4, 4)).copy()
+    return pts, rgb, np.ones((k, N), bool), poses
 
 
 def _fields(g):
@@ -125,7 +156,7 @@ def _jax_planar_dropped(g, pts, rgb, mask, poses, dropped, *, config):
 
 
 INTEGRATE_CASES = ("active_budget", "planar_dropped", "buffer_full", "k1",
-                   "empty")
+                   "empty", "long_run")
 
 
 @pytest.mark.parametrize("case", INTEGRATE_CASES)
@@ -146,6 +177,10 @@ def test_integrate_step_vs_jax(states, case):
         pipe.step_batch(g, *map(torch.from_numpy, p), extra_dropped=5)
         jg = _jax_planar_dropped(jg, *map(jnp.asarray, p), jnp.int32(5),
                                  config=JCFG)
+    elif case == "long_run":
+        p = _one_cell(3)
+        pipe.step_batch(g, *map(torch.from_numpy, p))
+        jg = jpipe.integrate_batch(jg, *map(jnp.asarray, p), config=JCFG)
     elif case == "k1":
         d, c, n, t = _depth(1, k=1)
         pipe.step_depth(g, *(torch.from_numpy(a[0]) for a in (d, c)),
@@ -167,7 +202,7 @@ def test_integrate_step_vs_jax(states, case):
     if case == "empty":
         assert got["cell"].size == before["cell"].size and added == 0
         assert got["buf_count"] == before["buf_count"]
-    elif case == "active_budget" or case == "buffer_full":
+    elif case in ("active_budget", "buffer_full", "long_run"):
         assert added == 4 * N - NA
     elif case == "planar_dropped":
         n_valid = int(_plane(2)[2].sum())
@@ -208,3 +243,31 @@ def test_refine_lines_vs_jax(states, reclaim):
     assert _revisits(convert.grid_to_numpy(g), cfg) > 0
     if not reclaim:
         assert got["buf_count"] == before["buf_count"]
+
+
+@pytest.fixture(scope="module")
+def shell_states():
+    """JAX states: a batch of the spherical shell (no refine yet), and a
+    refine of it."""
+    g = jpipe.integrate_batch(jgrid.make_grid(JCFG),
+                              *map(jnp.asarray, _shell(3)), config=JCFG)
+    carried = _fields(g)
+    return carried, _fields(jax_refine(_jax_grid(carried), config=JCFG))
+
+
+def test_refine_many_lines_one_cell_vs_jax(shell_states):
+    """The refine of the shell: the lines of many candidates meet in the
+    shell's center cell, a run of line lanes many times D long (the owners
+    that win, in list order, and ``overflow_dep``); then by cell id."""
+    carried, want = shell_states
+    probe = convert.grid_from_jax(carried, CFG, "cpu")
+    cand = torch.nonzero((probe.n_pts > 0) & ~probe.normal_found
+                         ).squeeze(1).to(torch.int32)
+    nvec, gated = refine.normal_fit_plain(cand, probe, CFG)
+    lids, valid = refine.line_cells(cand, nvec, gated, probe, CFG)
+    longest = int(torch.unique(lids[valid], return_counts=True)[1].max())
+    assert longest > 5 * CFG.max_dependants
+    g = convert.grid_from_jax(carried, CFG, "cpu")
+    refine.refine_pass(g, CFG)
+    got = _compare(g, want, CFG)
+    assert got["overflow_dep"] > int(carried["overflow_dep"])

@@ -53,11 +53,17 @@ and prints no result line):
    in order and K3's sorted lanes exactly, and a repeat on another copy
    of the grid bit-identical by cell id; B6 (``refine.refine_lines``)
    and B7 (``refine.buffer_replay``) on the first refine of phase 4's
-   sweep: the dependant lists in order, the counts and the links exactly,
-   then B7's hit counts exactly and sums within ``checks.RTOL`` of the
-   terms; each with its counts, bound and share; B6's library sort timed
-   alone on the pass's line-cell ids, its share taken on the rest of the
-   call (the hand passes with K2);
+   sweep: the dependant lists in order, the counts and the owner-major
+   links exactly, then B7's hit counts exactly and sums within
+   ``checks.RTOL`` of the terms, whether its ``cyl_stats`` are the plain
+   version's bit for bit, and a second launch on another copy
+   bit-identical; each with its counts, bound and share and its device
+   ms by kernel (B7's share also on ``bounds.buffer_replay_per_link``,
+   the yardstick its earlier shares were read against); B6's library
+   sort timed alone on the pass's line-cell ids, its share taken on the
+   rest of the call (the hand passes with K2); then that refine's
+   device ms by stage (candidates with the host read, K4, B6, the
+   buffer's sort and gather, B7, reclamation) and whole;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -712,10 +718,12 @@ def check_integrate_lanes(torch, cfg, pipe, batch, rays) -> dict:
 def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
     """Phase 3, B6 and B7 on the first refine of phase 4's sweep (after the
     first K=8 batch): B6 against its plain version (the grid by cell id
-    with the dependant lists in order, the links as (cell, candidate)
-    pairs), then B7 on B6's links against its plain version (hit counts
-    exact, sums under ``checks.cyl_stats_error``).  Returns both
-    ``timed`` entries with their counts."""
+    with the dependant lists in order, the links by cell), then B7 on B6's
+    links against its plain version (hit counts exact, sums under
+    ``checks.cyl_stats_error``) and a second launch on another copy
+    (``cyl_stats`` bit-identical); then the whole refine's device ms by
+    stage.  Returns both ``timed``
+    entries with their counts."""
     from hifi_fusion_tpu_torch import bounds, checks
     from hifi_fusion_tpu_torch.ops import refine
     grid = pipe.init()
@@ -733,14 +741,9 @@ def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
     lp = refine.refine_lines_plain(cand, nvec, gated, gp, cfg)
     torch.cuda.synchronize()
     problems = grid_problems(cfg, gk, gp)
-
-    def links(g, ls, lu):
-        pairs = (cells_at(torch, g, ls).long() << 32) | lu.long()
-        return torch.sort(pairs).values
-
-    if not torch.equal(links(gk, *lk), links(gp, *lp)):
+    if not torch.equal(cells_at(torch, gk, lk), cells_at(torch, gp, lp)):
         problems.append("links differ")
-    n_written = int((lk[0] >= 0).sum())
+    n_written = int((lk >= 0).sum())
     if problems or n_written == 0:
         raise AssertionError(f"refine_lines: {problems}, {n_written} links")
     lids, valid = refine.line_cells(cand, nvec, gated, grid, cfg)
@@ -773,16 +776,16 @@ def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
                             "passes_ms": split}}
 
     bc = int(gk.buf_count)
-    bslot, border = torch.sort(gk.buf_slot[:bc], stable=True)
-    bpts = gk.buf_pts[:, :bc][:, border].contiguous()
+    bslot, bpts = refine.sorted_buffer(gk, bc)
 
     def setup7():
-        return (*lk, cand, nvec, bslot, bpts, with_copies(gk, ("cyl_stats",)),
+        return (lk, cand, nvec, bslot, bpts, with_copies(gk, ("cyl_stats",)),
                 cfg)
 
-    rk, rp = setup7()[-2], setup7()[-2]
-    refine.buffer_replay(*lk, cand, nvec, bslot, bpts, rk, cfg)
-    refine.buffer_replay_plain(*lk, cand, nvec, bslot, bpts, rp, cfg)
+    rk, rp, r2 = setup7()[-2], setup7()[-2], setup7()[-2]
+    refine.buffer_replay(lk, cand, nvec, bslot, bpts, rk, cfg)
+    refine.buffer_replay_plain(lk, cand, nvec, bslot, bpts, rp, cfg)
+    refine.buffer_replay(lk, cand, nvec, bslot, bpts, r2, cfg)
     torch.cuda.synchronize()
     ok, err = checks.cyl_stats_error(rk.cyl_stats.cpu().numpy(),
                                      rp.cyl_stats.cpu().numpy(),
@@ -791,16 +794,72 @@ def check_refine_kernels(torch, cfg, pipe, batch, rays) -> dict:
     if not ok or float(added.sum()) <= 0:
         raise AssertionError(f"buffer_replay: ok={ok} max err {err}, "
                              f"{float(added.sum())} hits")
-    c7 = bounds.buffer_replay_counts(lk[0], bslot, added)
+    if not bits_equal(torch, rk.cyl_stats, r2.cyl_stats):
+        raise AssertionError("buffer_replay: a repeat differs")
+    c7 = bounds.buffer_replay_counts(lk, bslot, added)
     log(f"phase 3: buffer_replay: {c7}, {float(added.sum()):.0f} hits, "
         f"buffer {bc} lanes; hit counts exact, sums within rtol "
-        f"{checks.RTOL} of the terms")
+        f"{checks.RTOL} of the terms (max_abs_err {err:.3g}, bit-equal to "
+        f"the plain version: "
+        f"{bits_equal(torch, rk.cyl_stats, rp.cyl_stats)}); a repeat "
+        f"bit-identical")
     ms, pms = time_pair(torch, refine.buffer_replay,
                         refine.buffer_replay_plain,
                         lambda: cold(torch, *setup7()))
-    res["buffer_replay"] = {**timed(err, ms, pms, bounds.buffer_replay(
-        **c7)), **c7}
+    split = kernel_split(torch, refine.buffer_replay, setup7)
+    log(f"phase 3: buffer_replay by kernel, ms: {json.dumps(split)}")
+    b7 = bounds.buffer_replay(c7["P"], c7["n_owners"], c7["n_points"],
+                              c7["n_pairs"], c7["n_hit_owners"])
+    per_link = bounds.buffer_replay_per_link(
+        c7["P"], c7["n_links"], c7["n_points"], c7["n_pairs"],
+        c7["n_hit_owners"])["bound_ms"]
+    log(f"phase 3: buffer_replay: {ms:.4f} ms, share "
+        f"{b7['bound_ms'] / ms:.3f} of its bound {b7['bound_ms']:.4f} ms "
+        f"({b7['bytes'] / 1e6:.1f} MB); on the per-link yardstick "
+        f"(bounds.buffer_replay_per_link, {per_link:.4f} ms) "
+        f"{per_link / ms:.3f}")
+    res["buffer_replay"] = {**timed(err, ms, pms, b7), **c7,
+                            "passes_ms": split,
+                            "per_link_share": per_link / ms}
+    stages = refine_stages(torch, cfg, grid, refine)
+    log(f"phase 3: the first refine's device ms by stage: "
+        f"{json.dumps(stages)}")
+    res["buffer_replay"]["refine_stages_ms"] = stages
     return res
+
+
+def refine_stages(torch, cfg, grid, refine) -> dict:
+    """Device ms of each stage of ``refine_pass`` on ``grid`` (the state
+    before phase 4's first refine), each timed alone on the inputs the
+    earlier stages give it, and of the whole pass: the candidates with
+    the pass's one host read, K4, B6, the buffer's sort and gather, B7,
+    reclamation."""
+    g = copy_grid(grid)
+    cand, bc = refine.refine_candidates(g, cfg)
+    nvec, gated = refine.normal_fit(cand, g, cfg)
+    links = refine.refine_lines(cand, nvec, gated, g, cfg)
+    bslot, bpts = refine.sorted_buffer(g, bc)
+    refine.buffer_replay(links, cand, nvec, bslot, bpts, g, cfg)
+    buf = ("buf_pts", "buf_slot", "buf_count", "reclaimed")
+    out = {
+        "candidates": device_ms(torch, refine.refine_candidates, lambda: (
+            with_copies(grid, ("overflow_refine",)), cfg)),
+        "normal_fit": device_ms(torch, refine.normal_fit, lambda: (
+            cand, with_copies(grid, ("normal", "normal_found")), cfg)),
+        "refine_lines": device_ms(torch, refine.refine_lines, lambda: (
+            cand, nvec, gated, with_copies(grid, B6_WRITES), cfg)),
+        "buffer_sort": device_ms(torch, refine.sorted_buffer,
+                                 lambda: (grid, bc)),
+        "buffer_replay": device_ms(torch, refine.buffer_replay, lambda: (
+            links, cand, nvec, bslot, bpts, with_copies(g, ("cyl_stats",)),
+            cfg)),
+        "reclaim": device_ms(torch, refine.reclaim, lambda: (
+            with_copies(g, buf), cfg, bslot, bpts)),
+        "refine_pass": device_ms(torch, refine.refine_pass, lambda: (
+            copy_grid(grid), cfg))}
+    out["sum_of_stages"] = sum(v for k, v in out.items()
+                               if k != "refine_pass")
+    return out
 
 
 def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):

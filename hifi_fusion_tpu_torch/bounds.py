@@ -223,37 +223,50 @@ def refine_lines(U: int, n_gated: int, L: int, n_cells: int, n_new: int,
                  n_written: int) -> dict:
     """B6 on U candidates with L line steps: each candidate's slot, key,
     normal and gate read (21 B); each of the L*U lanes' link written
-    (line slot and candidate, 8 B); per distinct line cell its key probe
+    (its line slot or -1, 4 B); per distinct line cell its key probe
     and dep_count read and written (12 B), a new cell's key (4 B); each
     written link's owner word (4 B).  ~10 f32 operations a line point of
     a gated candidate (the point, its floors and its bbox test)."""
-    return bound(U * 21 + L * U * 8 + n_cells * 12 + n_new * 4
+    return bound(U * 21 + L * U * 4 + n_cells * 12 + n_new * 4
                  + n_written * 4, 10 * L * n_gated)
 
 
-def buffer_replay(P: int, n_links: int, n_points: int, n_pairs: int,
+def buffer_replay(P: int, n_owners: int, n_points: int, n_pairs: int,
                   n_hit_owners: int) -> dict:
-    """B7 on P link lanes (line slot and candidate, 8 B each) of which
-    ``n_links`` hold a written link: per link its owner's slot, key and
-    normal (20 B); each buffered point of a replayed cell read once, with
-    its slot (16 B); per owner with a hit its 5 cyl_stats sums read and
-    written (40 B).  ~20 f32 operations per (link, point) pair
+    """B7 on P link lanes (the owner-major links, a line slot or -1, 4 B
+    each): per candidate with a written link (``n_owners``) its slot, key
+    and normal (20 B); each buffered point of a replayed cell read once,
+    with its slot (16 B); per owner with a hit its 5 cyl_stats sums read
+    and written (40 B).  ~20 f32 operations per (link, point) pair
     (``n_pairs``) for the cylinder gate and the sums."""
+    return bound(P * 4 + n_owners * 20 + n_points * 16 + n_hit_owners * 40,
+                 20 * n_pairs)
+
+
+def buffer_replay_per_link(P: int, n_links: int, n_points: int,
+                           n_pairs: int, n_hit_owners: int) -> dict:
+    """The yardstick B7's shares were first read against, kept so that
+    they compare across designs: 8 B a link lane (a line slot and a
+    candidate, as B6 first wrote the links) and the owner's 20 B for each
+    of the ``n_links`` written links, the rest as ``buffer_replay``.  It
+    counts more than the function needs; ``buffer_replay`` is the
+    bound."""
     return bound(P * 8 + n_links * 20 + n_points * 16 + n_hit_owners * 40,
                  20 * n_pairs)
 
 
-def buffer_replay_counts(ls: torch.Tensor, bslot: torch.Tensor,
+def buffer_replay_counts(links: torch.Tensor, bslot: torch.Tensor,
                          hits_added: torch.Tensor) -> dict:
-    """The counts of ``buffer_replay`` for its link slots ``ls`` (-1 = no
-    link), the slot-sorted buffer ``bslot`` and the (C,) hits the call
-    added to each owner."""
-    s = ls[ls >= 0]
+    """The counts of ``buffer_replay`` and ``buffer_replay_per_link`` for
+    the (U, L) owner-major ``links`` (-1 = no link), the slot-sorted
+    buffer ``bslot`` and the (C,) hits the call added to each owner."""
+    s = links[links >= 0]
     first = torch.searchsorted(bslot, s)
     run = torch.searchsorted(bslot, s, right=True) - first
     cells = torch.unique(s)
     cfirst = torch.searchsorted(bslot, cells)
     crun = torch.searchsorted(bslot, cells, right=True) - cfirst
-    return {"P": int(ls.numel()), "n_links": int(s.numel()),
+    return {"P": int(links.numel()), "n_links": int(s.numel()),
+            "n_owners": int((links >= 0).any(1).sum()),
             "n_points": int(crun.sum()), "n_pairs": int(run.sum()),
             "n_hit_owners": int((hits_added > 0).sum())}

@@ -15,7 +15,7 @@
 // Bound on the card: memory, and little of it.  Each candidate's slot,
 // key, normal and gate are read (~21 B), each line cell's key probe and
 // dep_count read and written, each written link's dep word written, and
-// each lane's link (slot, candidate) written for the replay B7: 24 MB at
+// each lane's link (its slot or -1) written for the replay B7: 20 MB at
 // the bench's first refine (bounds.refine_lines, chip_smoke.py phase 3),
 // which counts the hand passes; the one library sort of P i32 keys with
 // their lane payload between them is timed apart.  Most of the hand
@@ -45,16 +45,17 @@
 //     slot (s < 0) links nothing and counts nothing, as the JAX package
 //     drops its lanes;
 //  4. lanes, a thread a lane: pos = base + (i - ustart[u]); the owner
-//     cand[lu] is written at dep[s*D + pos] while pos < D, and every lane
-//     gets its link for B7: the line slot (-1 where none was written) and
-//     the candidate lu = lane % U.
+//     cand[u] (u = lane % U, step j = lane / U) is written at dep[s*D +
+//     pos] while pos < D, and the lane's link for B7 at links[u*L + j],
+//     owner-major: the line slot, -1 where none was written.
 // The JAX package (and the plain version) scatters the slots back to the
 // lanes and sorts the links again, by slot.  One cell has one slot, so
 // grouping by slot groups the same lanes as grouping by cell id, and both
 // stable sorts leave a group in (step, candidate) order: the rank of
 // every link, and so which owners win when D binds, is the same without
 // the second sort.  Only the order of the groups differs, which nothing
-// reads (B7 adds each link's hits with atomics).
+// reads: B7 takes the links by owner, as the JAX package sorts them for
+// its replay.
 
 #include "scan.cuh"
 
@@ -124,11 +125,11 @@ b6_lanes_kernel(const long* __restrict__ lane,
                 const int* __restrict__ lane_run,
                 const int* __restrict__ kslot,
                 const int* __restrict__ rebase, unsigned P, unsigned U,
-                const int* __restrict__ cand, int D, int* __restrict__ dep,
-                int* __restrict__ ls, int* __restrict__ lu) {
+                unsigned L, const int* __restrict__ cand, int D,
+                int* __restrict__ dep, int* __restrict__ links) {
     const unsigned i = blockIdx.x * B6_THREADS + threadIdx.x;
     if (i >= P) return;
-    const unsigned uc = (unsigned)lane[i] % U;
+    const unsigned l = (unsigned)lane[i], j = l / U, uc = l - j * U;
     const int r = lane_run[i];
     int out = -1;
     if (r >= 0) {
@@ -141,8 +142,7 @@ b6_lanes_kernel(const long* __restrict__ lane,
             }
         }
     }
-    ls[i] = out;
-    lu[i] = (int)uc;
+    links[uc * L + j] = out;
 }
 
 // Pass 1: the (L*U,) line-cell ids, INVALID_ID where none.
@@ -181,14 +181,13 @@ extern "C" int launch_refine_lines_cells(const void* sid, long P,
     return (int)cudaGetLastError();
 }
 
-// Passes 3-4: the dependant append and the links for the replay.
+// Passes 3-4: the dependant append and the (U, L) links for the replay.
 // ``rebase`` holds P ints of scratch (a run's base - ustart).
 extern "C" int launch_refine_lines_append(
         const void* lane, const void* lane_run, const void* ustart,
-        const void* kslot, const void* n_runs, long P, int U,
+        const void* kslot, const void* n_runs, long P, int U, int L,
         const void* cand, int D, void* dep, void* dep_count,
-        void* overflow_dep, void* rebase, void* ls, void* lu,
-        void* stream) {
+        void* overflow_dep, void* rebase, void* links, void* stream) {
     if (P == 0) return 0;
     if (P >= (1L << 31)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -197,7 +196,7 @@ extern "C" int launch_refine_lines_append(
         (int*)dep_count, (int*)overflow_dep, (int*)rebase);
     b6_lanes_kernel<<<grid_blocks(P, B6_THREADS), B6_THREADS, 0, st>>>(
         (const long*)lane, (const int*)lane_run, (const int*)kslot,
-        (const int*)rebase, (unsigned)P, (unsigned)U, (const int*)cand, D,
-        (int*)dep, (int*)ls, (int*)lu);
+        (const int*)rebase, (unsigned)P, (unsigned)U, (unsigned)L,
+        (const int*)cand, D, (int*)dep, (int*)links);
     return (int)cudaGetLastError();
 }

@@ -114,14 +114,14 @@ _SIGNATURES = {
                                    _P, _P],
     # sid, P, lane_run, uids, ustart, scratch, words, stream
     "launch_refine_lines_cells": [_P, _L, _P, _P, _P, _P, _L, _P],
-    # lane, lane_run, ustart, kslot, n_runs, P, U, cand, D, dep, dep_count,
-    # overflow_dep, rebase, ls, lu, stream
-    "launch_refine_lines_append": [_P, _P, _P, _P, _P, _L, _I, _P, _I, _P,
+    # lane, lane_run, ustart, kslot, n_runs, P, U, L, cand, D, dep,
+    # dep_count, overflow_dep, rebase, links, stream
+    "launch_refine_lines_append": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _I,
                                    _P, _P, _P, _P, _P, _P],
-    # ls, lu, P, cand, U, nvec, key, bslot, bpts, bc, geo_f, geo_i, radius,
-    # cyl_stats, stream
-    "launch_buffer_replay": [_P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _P,
-                             _P, _F, _P, _P],
+    # links, U, L, G, cand, nvec, key, bslot, bpts, bc, table, C, geo_f,
+    # geo_i, radius, cyl_stats, stream
+    "launch_buffer_replay": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                             _I, _P, _P, _F, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -250,19 +250,24 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
     return world, ids, rgb_out
 
 
-def cylinder_add(cyl_stats: torch.Tensor, owner: torch.Tensor,
-                 p: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
-                 radius: float) -> None:
-    """Cylinder test of (3,Q) points ``p`` against owners with centers
-    ``c`` and unit normals ``n`` (3,Q): ``q = p - c``, ``t = q.n``,
-    ``r = q - t n``, ``d = |r|`` in the JAX package's operation order;
-    where ``d < radius`` add [t, t², d, d², 1] to ``cyl_stats`` rows
-    ``owner`` (Q,) in place.  Shared by the stream's plain version and the
-    refine replay."""
+def cylinder_td(p: torch.Tensor, c: torch.Tensor, n: torch.Tensor):
+    """The (Q,) projection ``t`` and distance ``d`` of (3,Q) points ``p``
+    on the axes through centers ``c`` along unit normals ``n`` (3,Q):
+    ``q = p - c``, ``t = q.n``, ``r = q - t n``, ``d = |r|`` in the JAX
+    package's operation order (common.cuh cylinder_hit).  Shared by the
+    stream's plain version and the refine replay's."""
     q = p - c
     t = (q[0] * n[0] + q[1] * n[1]) + q[2] * n[2]
     r = q - t[None] * n
-    d = torch.sqrt((r[0] * r[0] + r[1] * r[1]) + r[2] * r[2])
+    return t, torch.sqrt((r[0] * r[0] + r[1] * r[1]) + r[2] * r[2])
+
+
+def cylinder_add(cyl_stats: torch.Tensor, owner: torch.Tensor,
+                 p: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                 radius: float) -> None:
+    """Where ``d < radius`` (``cylinder_td``) add [t, t², d, d², 1] to
+    ``cyl_stats`` rows ``owner`` (Q,) in place."""
+    t, d = cylinder_td(p, c, n)
     hit = d < radius
     t, d = t[hit], d[hit]
     vals = torch.stack([t, t * t, d, d * d, torch.ones_like(t)], dim=1)

@@ -19,7 +19,8 @@ The counterpart of ``refine_pass_impl`` in ``hifi_fusion_tpu/ops/refine.py``
    D, else counted in ``overflow_dep``; a line that revisits a cell keeps
    both visits, as the reference does;
 5. replay: every link created in this pass streams the line slot's
-   buffered points through the owner's new cylinder;
+   buffered points through the owner's new cylinder, the links taken by
+   owner (the JAX package sorts them so) and each owner's sums added once;
 6. reclamation: with ``reclaim_buffer`` the buffer keeps only lanes whose
    voxel still lacks a normal; without it the buffer is re-laid out by
    slot, unchanged in content.
@@ -40,7 +41,7 @@ from ..grid import GridState, occupied_slots
 from . import geometry, hashing
 from .eigen33 import smallest_eigenpair_sym
 from .hashing import INVALID_ID
-from .integrate import cylinder_add
+from .integrate import cylinder_td
 from .scatter import run_sums, runs
 
 
@@ -174,9 +175,10 @@ def refine_lines_plain(cand, nvec, gated, grid, config, offset=None):
     grid.overflow_dep += (~write).sum().to(i32)
     grid.dep[sl[write] * D + pos[write]] = cand[lu[:n_ok][write].long()]
     grid.dep_count[lkey] += run_sums(write.to(i32), lrun, lkey.numel())
-    ls = torch.full((L * U,), -1, dtype=i32, device=dev)
-    ls[:n_ok] = torch.where(write, sL[:n_ok], -1)
-    return ls, lu
+    lane = perm[:n_ok][write]                     # step * U + candidate
+    links = torch.full((U, L), -1, dtype=i32, device=dev)
+    links[lane % max(U, 1), lane // max(U, 1)] = sL[:n_ok][write]
+    return links
 
 
 def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
@@ -189,11 +191,11 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
     candidate appended to the dependant list of every cell its line
     visits, at ``dep_count + rank`` in (step, candidate) order while that
     is under D, else counted in ``overflow_dep``.  Updates ``grid`` in
-    place; returns the links ``(ls, lu)``, (L*U,) i32 each, one a lane,
-    the lanes of one line cell together in (step, candidate) order: the
-    line slot where the link was written (-1 where not) and the candidate
-    index, the input of ``buffer_replay``.  Centers and line points are
-    global, line cells local (``offset``).
+    place; returns the links owner-major, (U, L) i32: ``links[u, j]`` is
+    the line slot where candidate u's link of step j was written, -1 where
+    none was (not valid, not gated, D full), the input of
+    ``buffer_replay``.  Centers and line points are global, line cells
+    local (``offset``).
 
     Kernel B6 (``csrc/refine_lines.cu``) with K2 and a library sort on
     CUDA tensors, reading nothing back to the host, its groups in cell-id
@@ -201,10 +203,10 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
     under 2^31), the stable sort by cell id, the run scan (look-back) that
     compacts the line cells for K2 with their count on the card, a thread
     a run that reserves each cell's dependant slots and a thread a lane
-    that writes the links.  Its plain version on CPU tensors, grouped by
-    slot as the JAX package groups them.  Line slots may differ (K2's CAS
-    race); the cells, the dependant lists in order and the set of links
-    are the same by cell id."""
+    that writes the dependants and the links.  Its plain version on CPU
+    tensors, grouped by slot as the JAX package groups them.  Line slots
+    may differ (K2's CAS race); the cells, the dependant lists in order
+    and the links are the same by cell id."""
     dev = grid.device
     U = cand.numel()
     kernels.check_inputs(dev, ("cand", cand, torch.int32, (U,)),
@@ -218,10 +220,9 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
     P = config.n_line * U
     if P >= 1 << 31:
         raise ValueError(f"{P} line lanes: kernel B6 indexes in 32 bits")
-    ls = torch.empty((P,), dtype=i32, device=dev)
-    lu = torch.empty((P,), dtype=i32, device=dev)
+    links = torch.empty((U, config.n_line), dtype=i32, device=dev)
     if P == 0:
-        return ls, lu
+        return links
     gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     st = kernels.stream()
@@ -248,69 +249,194 @@ def refine_lines(cand: torch.Tensor, nvec: torch.Tensor,
     rebase = ints(P)
     kernels.check(lib.launch_refine_lines_append(
         lane.data_ptr(), lane_run.data_ptr(), ustart.data_ptr(),
-        kslot.data_ptr(), scratch.data_ptr(), P, U, cand.data_ptr(),
-        config.max_dependants, grid.dep.data_ptr(),
+        kslot.data_ptr(), scratch.data_ptr(), P, U, config.n_line,
+        cand.data_ptr(), config.max_dependants, grid.dep.data_ptr(),
         grid.dep_count.data_ptr(), grid.overflow_dep.data_ptr(),
-        rebase.data_ptr(), ls.data_ptr(), lu.data_ptr(), st),
-        "refine_lines")
+        rebase.data_ptr(), links.data_ptr(), st), "refine_lines")
     kernels.LAUNCHES["refine_lines"] += 1
-    return ls, lu
+    return links
 
 
-def buffer_replay_plain(ls, lu, cand, nvec, bslot, bpts, grid, config,
-                        offset=None):
-    dev = ls.device
-    w = ls >= 0
-    l_s, l_u = ls[w], lu[w].long()
-    first = torch.searchsorted(bslot, l_s)
-    cnt = torch.searchsorted(bslot, l_s, right=True) - first
-    link = torch.repeat_interleave(torch.arange(l_s.numel(), device=dev),
-                                   cnt)
-    within = (torch.arange(link.numel(), device=dev)
-              - (torch.cumsum(cnt, 0) - cnt)[link])
-    u = l_u[link]
-    center = geometry.center_of_ids(grid.key[cand.long()], config, offset)
-    cylinder_add(grid.cyl_stats, cand[u].long(), bpts[:, first[link] + within],
-                 center[:, u], nvec[:, u], config.cylinder_radius)
+def replay_group(L: int) -> int:
+    """The lanes kernel B7 gives a candidate: the power of two >= L, at
+    most 32 (csrc/buffer_replay.cu launch_buffer_replay)."""
+    return min(1 << max(L - 1, 0).bit_length(), 32)
 
 
-def buffer_replay(ls: torch.Tensor, lu: torch.Tensor, cand: torch.Tensor,
+def run_table(bslot: torch.Tensor, table: torch.Tensor) -> None:
+    """Write ``table[s] = (i, e)``, the first lane and one past the last
+    of each slot's run in the ascending (bc,) ``bslot``, into the (C, 2)
+    i32 ``table``; the other entries keep whatever they held (kernel B7's
+    first launch)."""
+    lane = torch.arange(bslot.numel(), dtype=torch.int32,
+                        device=bslot.device)
+    ok = (bslot >= 0) & (bslot < table.shape[0])
+    first, last = ok.clone(), ok.clone()
+    first[1:] &= bslot[1:] != bslot[:-1]
+    last[:-1] &= bslot[:-1] != bslot[1:]
+    table[bslot[first].long(), 0] = lane[first]
+    table[bslot[last].long(), 1] = lane[last] + 1
+
+
+def run_lookup(table: torch.Tensor, bslot: torch.Tensor, s: torch.Tensor):
+    """The first lane and the length of each slot ``s``'s run (0 <= s <
+    C) in the ascending ``bslot``, length 0 where it has none: ``table[s]
+    = (i, e)`` is taken only where ``[i, e)`` lies in the buffer, holds
+    ``s`` at both ends and is a whole run, so that a table never cleared
+    (stale entries, garbage) gives the right answer (kernel B7's
+    lookup)."""
+    n = bslot.numel()
+    if n == 0:
+        return torch.zeros_like(s), torch.zeros_like(s)
+    i, e = table[s.long()].unbind(1)
+    a, b = i.clamp(0, n - 1).long(), e.clamp(1, n).long()
+    ok = ((i >= 0) & (i < e) & (e <= n) & (bslot[a] == s)
+          & (bslot[b - 1] == s)
+          & ((a == 0) | (bslot[(a - 1).clamp(min=0)] != s))
+          & ((b == n) | (bslot[b.clamp(max=n - 1)] != s)))
+    return torch.where(ok, i, 0), torch.where(ok, e - i, 0)
+
+
+def buffer_replay_plain(links, cand, nvec, bslot, bpts, grid, config,
+                        offset=None, table=None):
+    dev = links.device
+    U, L = links.shape
+    bc = bslot.numel()
+    if U == 0 or bc == 0:
+        return
+    G = replay_group(L)
+    # each link's run in the buffer, through the runs table
+    if table is None:
+        table = torch.empty((grid.key.numel(), 2), dtype=torch.int32,
+                            device=dev)
+    run_table(bslot, table)
+    s = links.reshape(-1)
+    start, cnt = torch.zeros_like(s), torch.zeros_like(s)
+    w = s >= 0
+    start[w], cnt[w] = run_lookup(table, bslot, s[w])
+    # the (link, point) pairs, each candidate's runs end to end in step
+    # order: pair p of candidate u is lane u*G + p % G's (p // G)-th
+    k = torch.repeat_interleave(torch.arange(U * L, device=dev), cnt)
+    n = torch.arange(k.numel(), device=dev)
+    u = k // L
+    per_u = cnt.view(U, L).sum(1)
+    p = n - (torch.cumsum(per_u, 0) - per_u)[u]
+    point = start[k] + n - (torch.cumsum(cnt, 0) - cnt)[k]
+    t, d = cylinder_td(bpts[:, point.long()],
+                       geometry.center_of_ids(grid.key[cand.long()], config,
+                                              offset)[:, u], nvec[:, u])
+    vals = torch.where((d < config.cylinder_radius)[None], torch.stack(
+        [t, t * t, d, d * d, torch.ones_like(t)]), 0.0)      # (5,Q)
+    lane = u * G + p % G
+    rank, by_rank = torch.sort(p // G, stable=True)
+    acc = torch.zeros((5, U * G), dtype=torch.float32, device=dev)
+    sizes = torch.bincount(rank).tolist() if rank.numel() else []
+    for sel in torch.split(by_rank, sizes):    # each lane once a round
+        acc[:, lane[sel]] = acc[:, lane[sel]] + vals[:, sel]
+    acc = acc.view(5, U, G)
+    while acc.shape[2] > 1:                    # the group's shuffle tree
+        acc = acc[:, :, 0::2] + acc[:, :, 1::2]
+    acc = acc[:, :, 0]
+    owners = acc[4] > 0
+    o = cand[owners].long()
+    cs = grid.cyl_stats.view(-1, 5)
+    cs[o] = cs[o] + acc[:, owners].t()
+
+
+def buffer_replay(links: torch.Tensor, cand: torch.Tensor,
                   nvec: torch.Tensor, bslot: torch.Tensor,
                   bpts: torch.Tensor, grid: GridState, config: FusionConfig,
-                  offset=None) -> None:
-    """Stage 5: every link written in this pass (``ls``, ``lu`` from
-    ``refine_lines``: line slot, -1 where none, and candidate index)
+                  offset=None, table: torch.Tensor | None = None) -> None:
+    """Stage 5: every link written in this pass (``links`` (U, L) i32 from
+    ``refine_lines``: candidate u's line slot of step j, -1 where none)
     streams the buffered points of its line cell through its owner's
-    cylinder (the candidate ``cand[lu]`` with normal ``nvec[:, lu]`` and
+    cylinder (the candidate ``cand[u]`` with normal ``nvec[:, u]`` and
     its global center); hits add [t, t², d, d², 1] to the owner's
-    ``cyl_stats`` in place.  ``bslot`` (bc,) i32 ascending and ``bpts``
-    (3,bc) f32 are the live buffer sorted by slot.  Kernel B7
-    (``csrc/buffer_replay.cu``) on CUDA tensors, its plain version on CPU
-    tensors: hit counts equal, the sums up to addition order."""
+    ``cyl_stats`` in place, each owner's five sums added once.  ``bslot``
+    (bc,) i32 ascending and ``bpts`` (3,bc) f32 are the live buffer
+    sorted by slot.  ``table``: the (C, 2) i32 runs table to fill, any
+    contents (a new ``torch.empty`` by default).  Kernel B7
+    (``csrc/buffer_replay.cu``: a table of the buffer's runs by slot,
+    then a group of ``replay_group(L)`` lanes a candidate, no atomics)
+    on CUDA tensors, its plain version on CPU tensors; both add each
+    owner's hits in the same order, so their ``cyl_stats`` are equal bit
+    for bit and the same from run to run."""
     dev = grid.device
-    P, U, bc = ls.numel(), cand.numel(), bslot.numel()
-    kernels.check_inputs(dev, ("ls", ls, torch.int32, (P,)),
-                         ("lu", lu, torch.int32, (P,)),
+    U, L, bc = cand.numel(), config.n_line, bslot.numel()
+    C = grid.key.numel()
+    kernels.check_inputs(dev, ("links", links, torch.int32, (U, L)),
                          ("cand", cand, torch.int32, (U,)),
                          ("nvec", nvec, torch.float32, (3, U)),
                          ("bslot", bslot, torch.int32, (bc,)),
-                         ("bpts", bpts, torch.float32, (3, bc)))
+                         ("bpts", bpts, torch.float32, (3, bc)),
+                         *(() if table is None else (
+                             ("table", table, torch.int32, (C, 2)),)))
     if dev.type == "cpu":
-        buffer_replay_plain(ls, lu, cand, nvec, bslot, bpts, grid, config,
-                            offset)
+        buffer_replay_plain(links, cand, nvec, bslot, bpts, grid, config,
+                            offset, table)
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if P == 0 or bc == 0:
+    if U == 0 or bc == 0:
         return
+    if table is None:
+        table = torch.empty((C, 2), dtype=torch.int32, device=dev)
     gf, gi = kernels.geometry_args(config, offset)
     lib = kernels.library()
     kernels.check(lib.launch_buffer_replay(
-        ls.data_ptr(), lu.data_ptr(), P, cand.data_ptr(), U, nvec.data_ptr(),
-        grid.key.data_ptr(), bslot.data_ptr(), bpts.data_ptr(), bc,
-        kernels.ptr(gf), kernels.ptr(gi), float(config.cylinder_radius),
+        links.data_ptr(), U, L, replay_group(L), cand.data_ptr(),
+        nvec.data_ptr(), grid.key.data_ptr(), bslot.data_ptr(),
+        bpts.data_ptr(), bc, table.data_ptr(), C, kernels.ptr(gf),
+        kernels.ptr(gi), float(config.cylinder_radius),
         grid.cyl_stats.data_ptr(), kernels.stream()), "buffer_replay")
     kernels.LAUNCHES["buffer_replay"] += 1
+
+
+def refine_candidates(grid: GridState, config: FusionConfig):
+    """Stage 1: the (U,) i32 candidate slots, ascending (a stable
+    compaction on the device, at most ``max_refine_candidates``, the rest
+    counted in ``overflow_refine``), and the live buffer's count: the
+    pass's one read back to the host, both counts in one copy."""
+    dev = grid.device
+    C = config.capacity
+    i32 = torch.int32
+    mask = occupied_slots(grid) & ~grid.normal_found
+    idx = torch.cumsum(mask, 0)
+    cand_all = torch.empty((C + 1,), dtype=i32, device=dev)
+    cand_all.scatter_(0, torch.where(mask, idx - 1, C),
+                      torch.arange(C, dtype=i32, device=dev))
+    n_cand, bc = torch.stack([idx[-1], grid.buf_count.long()]).cpu().tolist()
+    U = min(n_cand, config.max_refine_candidates)
+    grid.overflow_refine += n_cand - U
+    return cand_all[:U], bc
+
+
+def sorted_buffer(grid: GridState, bc: int):
+    """The live buffer's ``bc`` lanes sorted by slot (stable): ``bslot``
+    (bc,) i32 and ``bpts`` (3,bc) f32, as the JAX package sorts it for
+    the replay."""
+    bslot, border = torch.sort(grid.buf_slot[:bc], stable=True)
+    return bslot, grid.buf_pts[:, :bc][:, border].contiguous()
+
+
+def reclaim(grid: GridState, config: FusionConfig, bslot: torch.Tensor,
+            bpts: torch.Tensor) -> None:
+    """Stage 6 (B8): with ``reclaim_buffer`` the buffer keeps only the
+    lanes whose voxel still lacks a normal, the kept lanes first in slot
+    order; without it the buffer is re-laid out by slot."""
+    bc = bslot.numel()
+    if config.reclaim_buffer:
+        keep = ~grid.normal_found[bslot.long()]
+        korder = torch.sort((~keep).to(torch.uint8), stable=True)[1]
+        n_keep = keep.sum(dtype=torch.int32)
+        grid.buf_pts[:, :bc] = bpts[:, korder]
+        grid.buf_slot[:bc] = torch.where(
+            torch.arange(bc, device=grid.device) < n_keep, bslot[korder], -1)
+        grid.reclaimed += bc - n_keep
+        grid.buf_count.copy_(n_keep)
+    else:
+        grid.buf_pts[:, :bc] = bpts
+        grid.buf_slot[:bc] = bslot
 
 
 def refine_pass(grid: GridState, config: FusionConfig,
@@ -320,43 +446,10 @@ def refine_pass(grid: GridState, config: FusionConfig,
     global, line cells local (JAX refine.py:172-176, :269-270).  One read
     back to the host: the candidate count and the buffer count, fetched
     together, which size the candidates and the live buffer."""
-    dev = grid.device
-    C = config.capacity
-    i32 = torch.int32
-
-    # --- 1. candidates: a stable compaction on the device ------------------
-    mask = occupied_slots(grid) & ~grid.normal_found
-    idx = torch.cumsum(mask, 0)
-    cand_all = torch.empty((C + 1,), dtype=i32, device=dev)
-    cand_all.scatter_(0, torch.where(mask, idx - 1, C),
-                      torch.arange(C, dtype=i32, device=dev))
-    n_cand, bc = torch.stack([idx[-1], grid.buf_count.long()]).cpu().tolist()
-    U = min(n_cand, config.max_refine_candidates)
-    grid.overflow_refine += n_cand - U
-    cand = cand_all[:U]
-
-    # --- 2. normal fit (K4) ------------------------------------------------
-    nvec, gated = normal_fit(cand, grid, config, offset)
-
-    # --- 3-4. line cells and the dependant append (B6) -----------------------
-    ls, lu = refine_lines(cand, nvec, gated, grid, config, offset)
-
-    # --- 5. replay of the links created in this pass (B7) --------------------
-    bslot, border = torch.sort(grid.buf_slot[:bc], stable=True)
-    bpts = grid.buf_pts[:, :bc][:, border].contiguous()
-    buffer_replay(ls, lu, cand, nvec, bslot, bpts, grid, config, offset)
-
-    # --- 6. reclamation (B8): the kept lanes first, in slot order ------------
-    if config.reclaim_buffer:
-        keep = ~grid.normal_found[bslot.long()]
-        korder = torch.sort((~keep).to(torch.uint8), stable=True)[1]
-        n_keep = keep.sum(dtype=i32)
-        grid.buf_pts[:, :bc] = bpts[:, korder]
-        grid.buf_slot[:bc] = torch.where(
-            torch.arange(bc, device=dev) < n_keep, bslot[korder], -1)
-        grid.reclaimed += bc - n_keep
-        grid.buf_count.copy_(n_keep)
-    else:
-        grid.buf_pts[:, :bc] = bpts
-        grid.buf_slot[:bc] = bslot
+    cand, bc = refine_candidates(grid, config)                  # 1
+    nvec, gated = normal_fit(cand, grid, config, offset)        # 2, K4
+    links = refine_lines(cand, nvec, gated, grid, config, offset)  # 3-4, B6
+    bslot, bpts = sorted_buffer(grid, bc)                       # 5, B7
+    buffer_replay(links, cand, nvec, bslot, bpts, grid, config, offset)
+    reclaim(grid, config, bslot, bpts)                          # 6
     return grid

@@ -6,12 +6,19 @@ replays with the fusion replay's device idle share, of
 two or more checkouts of the PyTorch port on one CUDA card, in the order
 A, B, ..., ..., B, A.
 
-    python3 kernel_ab.py A_DIR B_DIR [C_DIR ...]
+    python3 kernel_ab.py [--only SECTION,...] A_DIR B_DIR [C_DIR ...]
+
+``--only`` runs the sections named and reports None for the rest:
+``fusion`` (K1, K2 at its fusion shapes, K3, K4), ``lanes`` (B3, B6,
+B7), ``tsdf`` (T1, K2's TSDF shape, T3), ``planar`` (K5, T2p),
+``routed`` (the offsets, B12), ``queries`` (B11) and ``replays``.
 
 Each run is a process of its own that imports ``hifi_fusion_tpu_torch``
 from its checkout (building that checkout's kernels there) and prints one
 JSON line.  The inputs are built through that checkout's own paths, with
-``chip_smoke.py``'s functions from this script's checkout:
+``chip_smoke.py``'s functions from this script's checkout, apart from
+the ``lanes`` section's checks, which come from the checkout's own
+``chip_smoke.py`` where it has them, since they follow its API:
 
 * ``hash_insert/integrate``, ``hash_insert/refine``, ``hash_insert/tsdf``:
   K2 on the key table and ids of the calls that the fusion integrate of
@@ -56,7 +63,9 @@ JSON line.  The inputs are built through that checkout's own paths, with
   (``chip_smoke.check_integrate_lanes`` and ``check_refine_kernels``,
   each held to its plain version there), for a checkout that has them,
   with B6's library sort timed alone (``refine_lines/sort``) and the rest
-  of its call, the hand passes with K2 (``refine_lines/hand``);
+  of its call, the hand passes with K2 (``refine_lines/hand``), and B6's
+  and B7's device ms by kernel of one profiled call
+  (``refine_lines/passes``, ``buffer_replay/passes``);
 * ``fusion_mpts``, ``tsdf_mpts``, ``planar_mpts``, ``sharded_mpts``: the
   96-frame replays of phases 4, 6, 7 and 14's routed one (4 shards on the
   card; push to drain; ``process()`` follows, untimed; the planar one for
@@ -92,6 +101,8 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPS = 10
+SECTIONS = ("fusion", "lanes", "tsdf", "planar", "routed", "queries",
+            "replays")
 TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "hash_insert/tsdf", "normal_fit", "segscan", "dep_stream",
          "tsdf_surface/batch2", "tsdf_surface/replay", "planar_frontend",
@@ -103,10 +114,9 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "refine_lines/hand", "buffer_replay")
 
 
-def smoke():
-    """This checkout's chip_smoke.py as a module."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_ab", HERE / "chip_smoke.py")
+def smoke(path=HERE / "chip_smoke.py"):
+    """The chip_smoke.py at ``path`` (this checkout's) as a module."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -143,8 +153,9 @@ def route_exchange(routing, pack, devices):
     return fn
 
 
-def child(root: str) -> dict:
-    """One run: the checkout at ``root``'s kernels and replays."""
+def child(root: str, sections=SECTIONS) -> dict:
+    """One run: the checkout at ``root``'s kernels and replays, of the
+    ``sections`` named."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
     cs = smoke()
@@ -189,47 +200,54 @@ def child(root: str) -> dict:
                                (), dtype=torch.int32, device=dev), *live)
         return cs.device_ms(torch, insert, setup, reps=REPS)
 
-    res = {"root": root}
+    res = {"root": root, **{k: None for k in TIMED}}
     # K2 (integrate, refine), K3, K4
     pipe = FusionPipeline(cfg, dev)
     batch = batcher(pipe)
     b0 = batch(0)
-    res["depth_frontend"] = cs.device_ms(
-        torch, lambda: integrate.depth_frontend(*b0, rays, cfg), tuple,
-        reps=REPS)
-    grid, calls = cs.fusion_state(torch, hashing, pipe, batch, rays)
-    for shape, (table, ids, n_live) in calls.items():
-        res[f"hash_insert/{shape}"] = time_insert(table, ids, n_live,
-                                                  cfg.max_probes)
-    del calls
-    world, ids, _ = integrate.depth_frontend(*batch(2), rays, cfg)
-    sid, order = torch.sort(ids, stable=True)
-    n_act = int((sid != integrate.INVALID_ID).sum())
-    uids, run = torch.unique_consecutive(sid[:n_act], return_inverse=True)
-    pts = world[:, order[:n_act]].contiguous()
-    slot_pt = hashing.lookup(grid.key, uids, cfg.max_probes,
-                             cfg.capacity)[run].contiguous()
-    res["dep_stream"] = cs.device_ms(torch, integrate.dep_stream, lambda: (
-        pts, slot_pt, dataclasses.replace(
-            grid, cyl_stats=grid.cyl_stats.clone()), cfg), reps=REPS)
-    cand = torch.nonzero((grid.n_pts > 0) & ~grid.normal_found
-                         ).squeeze(1).to(torch.int32)
-    res["normal_fit"] = cs.device_ms(
-        torch, refine.normal_fit, lambda: cs.cold(
-            torch, cand, dataclasses.replace(
-                grid, normal=grid.normal.clone(),
-                normal_found=grid.normal_found.clone()), cfg), reps=REPS)
-    del grid, world, ids, sid, order, pts
+    if "fusion" in sections:
+        res["depth_frontend"] = cs.device_ms(
+            torch, lambda: integrate.depth_frontend(*b0, rays, cfg), tuple,
+            reps=REPS)
+        grid, calls = cs.fusion_state(torch, hashing, pipe, batch, rays)
+        for shape, (table, ids, n_live) in calls.items():
+            res[f"hash_insert/{shape}"] = time_insert(table, ids, n_live,
+                                                      cfg.max_probes)
+        del calls
+        world, ids, _ = integrate.depth_frontend(*batch(2), rays, cfg)
+        sid, order = torch.sort(ids, stable=True)
+        n_act = int((sid != integrate.INVALID_ID).sum())
+        uids, run = torch.unique_consecutive(sid[:n_act],
+                                             return_inverse=True)
+        pts = world[:, order[:n_act]].contiguous()
+        slot_pt = hashing.lookup(grid.key, uids, cfg.max_probes,
+                                 cfg.capacity)[run].contiguous()
+        res["dep_stream"] = cs.device_ms(
+            torch, integrate.dep_stream, lambda: (
+                pts, slot_pt, dataclasses.replace(
+                    grid, cyl_stats=grid.cyl_stats.clone()), cfg),
+            reps=REPS)
+        cand = torch.nonzero((grid.n_pts > 0) & ~grid.normal_found
+                             ).squeeze(1).to(torch.int32)
+        res["normal_fit"] = cs.device_ms(
+            torch, refine.normal_fit, lambda: cs.cold(
+                torch, cand, dataclasses.replace(
+                    grid, normal=grid.normal.clone(),
+                    normal_found=grid.normal_found.clone()), cfg),
+            reps=REPS)
+        del grid, world, ids, sid, order, pts
     # B3, B6, B7 (phase 3's checks and inputs), for a checkout with them
-    for name in ("integrate_lanes", "refine_lines", "buffer_replay"):
-        res[name] = None
-    res["refine_lines/sort"] = res["refine_lines/hand"] = None
-    if hasattr(integrate, "aggregate_lanes"):
-        res["integrate_lanes"] = cs.check_integrate_lanes(
+    if "lanes" in sections and hasattr(integrate, "aggregate_lanes"):
+        own = Path(root) / "chip_smoke.py"
+        own = smoke(own) if own.exists() else cs
+        if not hasattr(own, "check_refine_kernels"):
+            own = cs
+        res["integrate_lanes"] = own.check_integrate_lanes(
             torch, cfg, pipe, batch, rays)["ms"]
-        for name, r in cs.check_refine_kernels(torch, cfg, pipe, batch,
-                                               rays).items():
+        for name, r in own.check_refine_kernels(
+                torch, cfg, pipe, batch, rays).items():
             res[name] = r["ms"]
+            res[f"{name}/passes"] = r.get("passes_ms")
             if name == "refine_lines":
                 res["refine_lines/sort"] = r["sort_ms"]
                 res["refine_lines/hand"] = r["hand_ms"]
@@ -237,52 +255,48 @@ def child(root: str) -> dict:
     torch.cuda.empty_cache()
     # T1, K2 (tsdf)
     tcfg = cs.tsdf_config(FusionConfig, tsdf.TsdfConfig)
-    tp = tsdf.TsdfPipeline(tcfg, dev)
-    batch = batcher(tp)
-    skey, vals = tsdf.tsdf_lanes(*batch(2), rays, tcfg)
-    sid, order = torch.sort(skey, stable=True)
-    svals = vals[:, order].contiguous()
-    starts = scatter.segment_starts(sid, sid != tsdf.BIG)
-    del skey, vals, order
-    res["segscan"] = cs.device_ms(torch, scatter.segment_reduce,
-                                  lambda: (svals, starts, "add"), reps=REPS)
-    del svals, starts, sid
-    grid, (table, ids, n_live) = cs.tsdf_state(hashing, tp, batch, rays)
-    res["hash_insert/tsdf"] = time_insert(table, ids, n_live,
-                                          tcfg.base.max_probes)
-    del table, ids
-    final = tp.init()
-    for i in range(cs.FRAMES // 8):
-        tp.step_batch_depth(final, *batch(i), rays)
-    for shape, g in (("batch2", grid), ("replay", final)):
-        cell, slots = tsdf.surface_cells(g, tcfg)
-        res[f"tsdf_surface/{shape}"] = cs.device_ms(
-            torch, tsdf.tsdf_surface, lambda: (cell, slots, g, tcfg),
-            reps=REPS)
-    del tp, grid, final, cell, slots
+    if "tsdf" in sections:
+        tp = tsdf.TsdfPipeline(tcfg, dev)
+        batch = batcher(tp)
+        skey, vals = tsdf.tsdf_lanes(*batch(2), rays, tcfg)
+        sid, order = torch.sort(skey, stable=True)
+        svals = vals[:, order].contiguous()
+        starts = scatter.segment_starts(sid, sid != tsdf.BIG)
+        del skey, vals, order
+        res["segscan"] = cs.device_ms(torch, scatter.segment_reduce,
+                                      lambda: (svals, starts, "add"),
+                                      reps=REPS)
+        del svals, starts, sid
+        grid, (table, ids, n_live) = cs.tsdf_state(hashing, tp, batch, rays)
+        res["hash_insert/tsdf"] = time_insert(table, ids, n_live,
+                                              tcfg.base.max_probes)
+        del table, ids
+        final = tp.init()
+        for i in range(cs.FRAMES // 8):
+            tp.step_batch_depth(final, *batch(i), rays)
+        for shape, g in (("batch2", grid), ("replay", final)):
+            cell, slots = tsdf.surface_cells(g, tcfg)
+            res[f"tsdf_surface/{shape}"] = cs.device_ms(
+                torch, tsdf.tsdf_surface, lambda: (cell, slots, g, tcfg),
+                reps=REPS)
+        del tp, grid, final, cell, slots
     torch.cuda.empty_cache()
-    res["planar_frontend"] = None
-    if hasattr(integrate, "planar_frontend"):
+    if "planar" in sections and hasattr(integrate, "planar_frontend"):
         p, c, m, t, q, _ = cs.planar_wires(torch, frames,
                                             dev)["f32-f32-count"]
         res["planar_frontend"] = cs.device_ms(
             torch, lambda: integrate.planar_frontend(p, c, m, t, cfg, q),
             tuple, reps=REPS)
         del p, c, m, t
-    res["tsdf_lanes_planar"] = None
-    if hasattr(tsdf, "tsdf_lanes_planar"):
+    if "planar" in sections and hasattr(tsdf, "tsdf_lanes_planar"):
         wire = cs.record_wire(torch, cs.cloud_frames(frames[16:24]),
                               tcfg.base.max_points, dev)
         res["tsdf_lanes_planar"] = cs.device_ms(
             torch, lambda: tsdf.tsdf_lanes_planar(*wire, tcfg), tuple,
             reps=REPS)
         del wire
-    for name in ("depth_frontend/offset", "planar_frontend/offset",
-                 "route_pack/depth", "route_pack/planar",
-                 "route_exchange/depth", "route_exchange/planar"):
-        res[name] = None
     routed = importlib.util.find_spec("hifi_fusion_tpu_torch.parallel")
-    if routed:
+    if "routed" in sections and routed:
         from hifi_fusion_tpu_torch.parallel import routing
         from hifi_fusion_tpu_torch.parallel.sharding import ShardedFusion
         shard = ShardedFusion(cfg, [dev] * 4).shards[1]
@@ -311,9 +325,8 @@ def child(root: str) -> dict:
                 reps=REPS)
         del p, c, m, t, b2
     torch.cuda.empty_cache()
-    for shape in ("ror", "occupied"):
-        res[f"neighbor_count/{shape}"] = None
-    if importlib.util.find_spec("hifi_fusion_tpu_torch.ops.queries"):
+    if "queries" in sections and importlib.util.find_spec(
+            "hifi_fusion_tpu_torch.ops.queries"):
         from hifi_fusion_tpu_torch.ops import queries
         grid = cs.fusion_final_grid(cfg, frames, rays, dev)
         occ = grid.n_pts > 0
@@ -334,37 +347,49 @@ def child(root: str) -> dict:
                 for k in ("device_step", "refine") if t.get(k, {}).get(
                     "count")}
 
-    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
-        _, dt, _, m = cs.replay(torch, cfg, frames, rays_np, "cuda",
-                                tmp + "/f")
-        res["fusion_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
-        res["fusion_dispatch_ms"] = per_dispatch(m)
-        res["fusion_profile"] = cs.profiled_replay(torch, cfg, frames,
-                                                   rays_np)
-        dt = cs.replay(torch, tcfg.base, frames, rays_np, "cuda",
-                       tmp + "/t", model="tsdf",
-                       model_params=cs.TSDF_PARAMS)[1]
-        res["tsdf_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
-        res["planar_mpts"] = None
-        if hasattr(session.FusionSession, "push_frame"):
-            _, dt, _, m = cs.replay(torch, cfg, frames, None, "cuda",
-                                    tmp + "/p",
-                                    clouds=cs.cloud_frames(frames))
-            res["planar_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
-            res["planar_dispatch_ms"] = per_dispatch(m)
-        res["sharded_mpts"] = None
-        if routed:
+    res["fusion_profile"] = None
+    for name in ("fusion", "tsdf", "planar", "sharded"):
+        res[f"{name}_mpts"] = None
+    if "replays" in sections:
+        with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
             _, dt, _, m = cs.replay(torch, cfg, frames, rays_np, "cuda",
-                                    tmp + "/s", n_devices=4, route=True)
-            res["sharded_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
-            res["sharded_dispatch_ms"] = per_dispatch(m)
+                                    tmp + "/f")
+            res["fusion_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+            res["fusion_dispatch_ms"] = per_dispatch(m)
+            res["fusion_profile"] = cs.profiled_replay(torch, cfg, frames,
+                                                       rays_np)
+            dt = cs.replay(torch, tcfg.base, frames, rays_np, "cuda",
+                           tmp + "/t", model="tsdf",
+                           model_params=cs.TSDF_PARAMS)[1]
+            res["tsdf_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+            if hasattr(session.FusionSession, "push_frame"):
+                _, dt, _, m = cs.replay(torch, cfg, frames, None, "cuda",
+                                        tmp + "/p",
+                                        clouds=cs.cloud_frames(frames))
+                res["planar_mpts"] = (cs.FRAMES * cs.WIDTH * cs.HEIGHT
+                                      / dt / 1e6)
+                res["planar_dispatch_ms"] = per_dispatch(m)
+            if routed:
+                _, dt, _, m = cs.replay(torch, cfg, frames, rays_np, "cuda",
+                                        tmp + "/s", n_devices=4,
+                                        route=True)
+                res["sharded_mpts"] = (cs.FRAMES * cs.WIDTH * cs.HEIGHT
+                                       / dt / 1e6)
+                res["sharded_dispatch_ms"] = per_dispatch(m)
     return res
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--child":
-        print(json.dumps(child(argv[2])), flush=True)
+    if len(argv) == 4 and argv[1] == "--child":
+        print(json.dumps(child(argv[2], argv[3].split(","))), flush=True)
         return 0
+    sections = SECTIONS
+    if len(argv) > 2 and argv[1] == "--only":
+        sections = tuple(argv[2].split(","))
+        if not set(sections) <= set(SECTIONS):
+            print(f"kernel_ab: sections are {SECTIONS}", file=sys.stderr)
+            return 2
+        argv = argv[:1] + argv[3:]
     if len(argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
@@ -378,8 +403,8 @@ def main(argv) -> int:
     runs = []
     for label, root in order + order[::-1]:
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--child", root], capture_output=True,
-                             text=True, timeout=900)
+                              "--child", root, ",".join(sections)],
+                             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)
             raise RuntimeError(f"run {label} ({root}) failed")
@@ -388,13 +413,15 @@ def main(argv) -> int:
         runs.append(r)
         times = ", ".join(f"{k} {r[k]}" if r[k] is None
                           else f"{k} {r[k]:.4f}" for k in TIMED)
-        print(f"{label}: {times} ms; fusion {r['fusion_mpts']:.3f}, tsdf "
-              f"{r['tsdf_mpts']:.3f}, planar {r['planar_mpts']}, sharded "
+        print(f"{label}: {times} ms; fusion {r['fusion_mpts']}, tsdf "
+              f"{r['tsdf_mpts']}, planar {r['planar_mpts']}, sharded "
               f"{r['sharded_mpts']} Mpts/s ({root}); ms a dispatch: fusion "
-              f"{r['fusion_dispatch_ms']}, planar "
+              f"{r.get('fusion_dispatch_ms')}, planar "
               f"{r.get('planar_dispatch_ms')}, sharded "
               f"{r.get('sharded_dispatch_ms')}; fusion replay profiled "
-              f"{json.dumps(r['fusion_profile'])}", flush=True)
+              f"{json.dumps(r['fusion_profile'])}; by kernel: B6 "
+              f"{r.get('refine_lines/passes')}, B7 "
+              f"{r.get('buffer_replay/passes')}", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

@@ -173,21 +173,26 @@ def test_integrate_lanes_bytes(color):
 
 def test_refine_lines_and_replay_bytes():
     b = bounds.refine_lines(1000, 900, 7, 3000, 1200, 5000)
-    assert b["bytes"] == (1000 * 21 + 7000 * 8 + 3000 * 12 + 1200 * 4
+    assert b["bytes"] == (1000 * 21 + 7000 * 4 + 3000 * 12 + 1200 * 4
                           + 5000 * 4)
     assert b["ops"] == 10 * 7 * 900
-    r = bounds.buffer_replay(7000, 5000, 20000, 30000, 800)
-    assert r["bytes"] == 7000 * 8 + 5000 * 20 + 20000 * 16 + 800 * 40
+    r = bounds.buffer_replay(7000, 900, 20000, 30000, 800)
+    assert r["bytes"] == 7000 * 4 + 900 * 20 + 20000 * 16 + 800 * 40
     assert r["ops"] == 20 * 30000
+    y = bounds.buffer_replay_per_link(7000, 5000, 20000, 30000, 800)
+    assert y["bytes"] == 7000 * 8 + 5000 * 20 + 20000 * 16 + 800 * 40
+    assert y["ops"] == 20 * 30000
 
 
 def test_buffer_replay_counts():
-    # links to slots 3 (twice), 5 and 9 (no buffered point), one unwritten
-    ls = torch.tensor([3, 3, 5, 9, -1], dtype=torch.int32)
+    # links to slots 3 (twice), 5 and 9 (no buffered point), two
+    # unwritten, a candidate without a link
+    links = torch.tensor([[3, 3], [5, -1], [-1, -1], [9, 9]],
+                         dtype=torch.int32)
     bslot = torch.tensor([1, 3, 3, 3, 5, 7], dtype=torch.int32)
     hits = torch.tensor([0.0, 2.0, 0.0, 1.0])
-    assert bounds.buffer_replay_counts(ls, bslot, hits) == {
-        "P": 5, "n_links": 4, "n_points": 4, "n_pairs": 7,
+    assert bounds.buffer_replay_counts(links, bslot, hits) == {
+        "P": 8, "n_links": 5, "n_owners": 3, "n_points": 4, "n_pairs": 7,
         "n_hit_owners": 2}
 
 

@@ -761,13 +761,6 @@ def _cells(g, slots):
     return torch.where(slots >= 0, g.key[slots.clamp(min=0).long()], -1)
 
 
-def _links(g, links):
-    """The (cell id, candidate) pairs of ``refine_lines``' link lanes,
-    sorted, with cell -1 where no link was written."""
-    cells = _cells(g, links[0]).cpu().tolist()
-    return sorted(zip(cells, links[1].cpu().tolist()))
-
-
 def test_hash_insert_sentinel_lanes(state):
     """K2 on a budget-sized array: INVALID_ID lanes get slot -1 and are
     not counted, the ids between them are placed as the plain version
@@ -858,12 +851,10 @@ def test_integrate_lanes_matches_plain(state, case):
     assert float((gk.n_pts - grid.n_pts).sum()) == min(n_act, NA)
 
 
-@pytest.mark.parametrize("cap", [False, True])
-def test_refine_lines_and_replay_match_plain(state, cap):
-    """B6 against its plain version on the refine after the third batch
-    (dependant lists in order, counts, links by cell), with D binding
-    when ``cap`` fills every list to D - 1; then B7 on B6's links against
-    its plain version (hit counts exact, sums under cyl_stats_error)."""
+def _refine_inputs(state, cap=False):
+    """The refine after the third batch up to B6: the grid with the
+    batch integrated (D - 1 dependants in every list with ``cap``), its
+    candidates and their normal fit."""
     pipe, grid, rays, b = state
     g0 = _grid_copy(grid)
     integrate.integrate_batch_depth(g0, *b, rays, CFG)
@@ -875,6 +866,53 @@ def test_refine_lines_and_replay_match_plain(state, cap):
     cand = torch.nonzero((g0.n_pts > 0) & ~g0.normal_found).squeeze(1).to(
         torch.int32)
     nvec, gated = refine.normal_fit(cand, g0, CFG)
+    return g0, cand, nvec, gated
+
+
+def _replay_inputs(state):
+    """B7's inputs on the refine after the third batch: the grid after
+    B6, the candidates, their normals, B6's links and the slot-sorted
+    buffer."""
+    g0, cand, nvec, gated = _refine_inputs(state)
+    links = refine.refine_lines(cand, nvec, gated, g0, CFG)
+    bslot, bpts = refine.sorted_buffer(g0, int(g0.buf_count))
+    return g0, cand, nvec, links, bslot, bpts
+
+
+def _replay_both(g, links, cand, nvec, bslot, bpts, cfg=CFG, offset=None,
+                 table=None):
+    """B7 and its plain version on copies of ``g``, each given its own
+    copy of the runs ``table`` where one is passed; returns both
+    grids."""
+    gk, gp = _grid_copy(g), _grid_copy(g)
+    tk, tp = (None, None) if table is None else (table.clone(),
+                                                 table.clone())
+    refine.buffer_replay(links, cand, nvec, bslot, bpts, gk, cfg, offset,
+                         tk)
+    refine.buffer_replay_plain(links, cand, nvec, bslot, bpts, gp, cfg,
+                               offset, tp)
+    torch.cuda.synchronize()
+    return gk, gp
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _hits(g, g0):
+    return float((g.cyl_stats.view(-1, 5)[:, 4]
+                  - g0.cyl_stats.view(-1, 5)[:, 4]).sum())
+
+
+@pytest.mark.parametrize("cap", [False, True])
+def test_refine_lines_and_replay_match_plain(state, cap):
+    """B6 against its plain version on the refine after the third batch
+    (dependant lists in order, counts, the owner-major links by cell),
+    with D binding when ``cap`` fills every list to D - 1; then B7 on
+    B6's links against its plain version: ``cyl_stats`` bit-equal (both
+    sum in one order), hence hit counts exact and sums under
+    cyl_stats_error."""
+    g0, cand, nvec, gated = _refine_inputs(state, cap)
     gk, gp = _grid_copy(g0), _grid_copy(g0)
     n0 = kernels.LAUNCHES["refine_lines"]
     lk = refine.refine_lines(cand, nvec, gated, gk, CFG)
@@ -884,29 +922,129 @@ def test_refine_lines_and_replay_match_plain(state, cap):
     problems = checks.grid_problems(convert.grid_to_numpy(gk),
                                     convert.grid_to_numpy(gp), CFG)
     assert not problems, problems
-    # the links as (cell, candidate) pairs: lanes are sorted by line slot,
-    # and a new ghost cell may take another slot in each run (K2's race)
-    assert _links(gk, lk) == _links(gp, lp)
-    n_links = int((lk[0] >= 0).sum())
+    # the links by cell: a new ghost cell may take another slot in each
+    # run (K2's race)
+    assert lk.shape == (cand.numel(), CFG.n_line)
+    assert torch.equal(_cells(gk, lk), _cells(gp, lp))
+    n_links = int((lk >= 0).sum())
     assert n_links > 0
     assert (int(gk.overflow_dep) > int(g0.overflow_dep)) == cap
 
-    bc = int(gk.buf_count)
-    bslot, border = torch.sort(gk.buf_slot[:bc], stable=True)
-    bpts = gk.buf_pts[:, :bc][:, border].contiguous()
-    rk = dataclasses.replace(gk, cyl_stats=gk.cyl_stats.clone())
-    rp = dataclasses.replace(gk, cyl_stats=gk.cyl_stats.clone())
+    bslot, bpts = refine.sorted_buffer(gk, int(gk.buf_count))
     n0 = kernels.LAUNCHES["buffer_replay"]
-    refine.buffer_replay(*lk, cand, nvec, bslot, bpts, rk, CFG)
-    refine.buffer_replay_plain(*lk, cand, nvec, bslot, bpts, rp, CFG)
-    torch.cuda.synchronize()
+    rk, rp = _replay_both(gk, lk, cand, nvec, bslot, bpts)
     assert kernels.LAUNCHES["buffer_replay"] == n0 + 1
+    assert _same_bits(rk.cyl_stats, rp.cyl_stats)
     ok, err = checks.cyl_stats_error(rk.cyl_stats.cpu().numpy(),
                                      rp.cyl_stats.cpu().numpy(),
                                      CFG.cylinder_radius)
     assert ok, err
-    hits = rk.cyl_stats.view(-1, 5)[:, 4] - gk.cyl_stats.view(-1, 5)[:, 4]
-    assert float(hits.sum()) > 0
+    assert _hits(rk, gk) > 0
+
+
+def test_buffer_replay_repeat_bit_identical(state):
+    """Two B7 launches on copies of one grid with the same links give
+    bit-identical ``cyl_stats`` (no atomics: each owner's sums in one
+    fixed order, added once), equal to the plain version's."""
+    g, cand, nvec, links, bslot, bpts = _replay_inputs(state)
+    got = []
+    for _ in range(2):
+        gk = _grid_copy(g)
+        refine.buffer_replay(links, cand, nvec, bslot, bpts, gk, CFG)
+        got.append(gk.cyl_stats)
+    torch.cuda.synchronize()
+    assert _same_bits(*got)
+    assert _hits(dataclasses.replace(g, cyl_stats=got[0]), g) > 0
+    gp = _grid_copy(g)
+    refine.buffer_replay_plain(links, cand, nvec, bslot, bpts, gp, CFG)
+    assert _same_bits(got[0], gp.cyl_stats)
+
+
+def _long_runs(g, links, rng):
+    """A slot-sorted buffer of runs 1 to 1000 points long in the line
+    cells of the first written links, the points spread over each cell."""
+    slots = torch.unique(links[links >= 0])[:40]
+    lens = np.resize([1, 2, 7, 8, 9, 31, 32, 33, 100, 1000], slots.numel())
+    bslot = torch.repeat_interleave(slots, torch.from_numpy(lens).to(
+        slots.device))
+    center = geometry.center_of_ids(g.key[bslot.long()], CFG)
+    half = CFG.resolution[0] / 2
+    noise = rng.uniform(-half, half, (3, bslot.numel())).astype(np.float32)
+    return bslot, (center + torch.from_numpy(noise).to(center.device)
+                   ).contiguous()
+
+
+B7_CASES = ("ghost", "revisit", "capped", "long_run", "narrow", "wide",
+            "no_candidates", "no_buffer", "offset", "stale_table",
+            "garbage_table")
+
+
+@pytest.mark.parametrize("case", B7_CASES)
+def test_buffer_replay_edge_shapes(state, case):
+    """B7 against its plain version, ``cyl_stats`` bit-equal: links only
+    to ghost cells (no buffered point: nothing added), a line visiting
+    one cell at two steps (both replay), links capped by D (-1), runs up
+    to 1000 points (much longer than a group), L = 3 (fewer steps than a
+    group of 4) and L = 35 (more steps than a group of 32), no
+    candidates, no buffer, a shard's offset, a runs table that holds the
+    runs of another buffer over the same cells, and one of random
+    values in and around the buffer's lanes."""
+    g, cand, nvec, links, bslot, bpts = _replay_inputs(state)
+    rng = np.random.default_rng(B7_CASES.index(case))
+    cfg, offset, table = CFG, None, None
+    U = cand.numel()
+    has_run = torch.isin(links, bslot)
+    if case == "ghost":
+        links = torch.where(has_run, -1, links)
+        assert bool((links >= 0).any())
+    elif case == "revisit":
+        m = CFG.line_k                  # the candidate's own cell
+        links[:, m + 1] = links[:, m]
+        assert bool((has_run[:, m] & (links[:, m] >= 0)).any())
+    elif case == "capped":
+        drop = torch.from_numpy(rng.random(links.shape) < 0.5).to(g.device)
+        links = torch.where(drop, -1, links)
+    elif case == "long_run":
+        bslot, bpts = _long_runs(g, links, rng)
+    elif case in ("narrow", "wide"):
+        cfg = dataclasses.replace(CFG, line_k=1 if case == "narrow" else 17)
+        cols = (np.arange(2, 5) if case == "narrow"
+                else rng.integers(0, CFG.n_line, cfg.n_line))
+        links = links[:, torch.from_numpy(cols).to(g.device)].contiguous()
+    elif case == "no_candidates":
+        cand, nvec, links = cand[:0], nvec[:, :0], links[:0]
+    elif case == "no_buffer":
+        bslot, bpts = bslot[:0], bpts[:, :0]
+    elif case == "offset":
+        # a shard's points and centers are global: shift both
+        offset = (3, -2, 1)
+        bpts = (bpts + torch.tensor(offset, device=bpts.device)[:, None]
+                * CFG.resolution[0]).contiguous()
+    elif case == "stale_table":
+        table = torch.full((g.key.numel(), 2), -1, dtype=torch.int32,
+                           device=g.device)
+        refine.run_table(_long_runs(g, links, rng)[0], table)
+        assert int((table[links[links >= 0].long()] >= 0).sum()) > 0
+    elif case == "garbage_table":
+        bc = bslot.numel()
+        table = torch.randint(-50, 2 * bc + 50, (g.key.numel(), 2),
+                              dtype=torch.int32, device=g.device)
+    n0 = kernels.LAUNCHES["buffer_replay"]
+    gk, gp = _replay_both(g, links, cand, nvec, bslot, bpts, cfg, offset,
+                          table)
+    launched = cand.numel() > 0 and bslot.numel() > 0
+    assert kernels.LAUNCHES["buffer_replay"] == n0 + launched
+    assert _same_bits(gk.cyl_stats, gp.cyl_stats)
+    ok, err = checks.cyl_stats_error(gk.cyl_stats.cpu().numpy(),
+                                     gp.cyl_stats.cpu().numpy(),
+                                     CFG.cylinder_radius)
+    assert ok, err
+    if case in ("ghost", "no_candidates", "no_buffer"):
+        assert _same_bits(gk.cyl_stats, g.cyl_stats)
+    else:
+        assert _hits(gk, g) > 0
+    if case == "wide":
+        assert links.shape == (U, 35)
 
 
 def _b3_lanes(dev, grid, runs, n_invalid, K, seed):
@@ -1027,19 +1165,6 @@ def test_integrate_lanes_repeat_bit_identical(state):
                           oc["buffer"].view(np.int64))
 
 
-def _links_in_order(g, links):
-    """The written links (ls >= 0) as (cell id, candidate) rows grouped by
-    cell id, each group in lane order, and the sorted candidates of the
-    lanes that wrote none."""
-    ls, lu = (t.cpu().numpy() for t in links)
-    key = g.key.cpu().numpy()
-    w = ls >= 0
-    cells = key[ls[w]]
-    at = np.argsort(cells, kind="stable")
-    return (np.stack([cells[at], lu[w][at]], axis=1),
-            np.sort(lu[~w]))
-
-
 B6_CASES = ("one_cell", "cap", "ungated", "u1")
 
 
@@ -1050,7 +1175,9 @@ def test_refine_lines_edge_shapes(state, case):
     occupied cell four times, their normals scaled so that step k lands on
     its center), every list filled to D - 1 so that D binds, every
     candidate ungated, one candidate.  The grid by cell id with the
-    dependant lists in order, and the links by cell in lane order."""
+    dependant lists in order, and the owner-major links by cell: which
+    (candidate, step) wrote a link, and so which owners won where D
+    binds."""
     pipe, grid, rays, b = state
     dev = pipe.device
     occ = torch.nonzero(grid.n_pts > 0).squeeze(1).to(torch.int32)
@@ -1084,13 +1211,13 @@ def test_refine_lines_edge_shapes(state, case):
     problems = checks.grid_problems(convert.grid_to_numpy(gk),
                                     convert.grid_to_numpy(gp), CFG)
     assert not problems, problems
-    (rk, nk), (rp, np_) = _links_in_order(gk, lk), _links_in_order(gp, lp)
-    assert np.array_equal(rk, rp) and np.array_equal(nk, np_)
+    assert torch.equal(_cells(gk, lk), _cells(gp, lp))
+    n_links = int((lk >= 0).sum())
     lids, valid = refine.line_cells(cand, nvec, gated, g0, CFG)
     if case == "ungated":
-        assert rk.shape[0] == 0 and not bool(valid.any())
+        assert n_links == 0 and not bool(valid.any())
     else:
-        assert rk.shape[0] > 0
+        assert n_links > 0
     if case == "one_cell":
         longest = int(torch.unique(lids[valid], return_counts=True)[1].max())
         assert longest > kernels.RUN_SCAN_TILE

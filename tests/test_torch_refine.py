@@ -3,7 +3,8 @@
 The state (one batch, a refine, a second batch, taken from the JAX
 package and carried across by ``convert.py``) has candidates, existing
 dependants and a buffer to replay.  Both packages refine it, with
-``reclaim_buffer`` on and off; compared by cell id:
+``reclaim_buffer`` on and off and with ``line_k=1``; compared by cell
+id:
 
 * the cell set (ghost line cells included), the normal_found set, each
   cell's dependant owners, dep_count, the buffer contents, buf_count and
@@ -56,8 +57,18 @@ def state():
 
 @pytest.mark.parametrize("reclaim", [True, False])
 def test_refine_vs_jax_from_carried_state(state, reclaim):
-    cfg = dataclasses.replace(CFG, reclaim_buffer=reclaim)
-    jcfg = dataclasses.replace(JCFG, reclaim_buffer=reclaim)
+    _refine_vs_jax(state, reclaim_buffer=reclaim)
+
+
+def test_refine_vs_jax_line_k1(state):
+    """Lines of three steps: fewer than a replay group's four lanes."""
+    _refine_vs_jax(state, line_k=1)
+
+
+def _refine_vs_jax(state, **change):
+    cfg = dataclasses.replace(CFG, **change)
+    jcfg = dataclasses.replace(JCFG, **change)
+    reclaim = cfg.reclaim_buffer
     start = {f: np.asarray(getattr(state, f)) for f in state._fields}
     g = convert.grid_from_jax(start, cfg, "cpu")
     n_cand = int(((g.n_pts > 0) & ~g.normal_found).sum())

@@ -63,7 +63,12 @@ and prints no result line):
    sort timed alone on the pass's line-cell ids, its share taken on the
    rest of the call (the hand passes with K2); then that refine's
    device ms by stage (candidates with the host read, K4, B6, the
-   buffer's sort and gather, B7, reclamation) and whole;
+   buffer's sort and gather, B7, reclamation) and whole; T4
+   (``tsdf.tsdf_reduce``, with K2) on the TSDF third K=8 batch's sorted
+   lanes and T1's sums into the config-5 grid after two batches, against
+   its plain version: the key set, ``vstats`` by cell bit for bit, both
+   overflow counters and the live count K2 is handed, with its ids,
+   exactly; its counts, bound, share and device ms by kernel;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -75,6 +80,10 @@ and prints no result line):
    and the refine after it under ``"warn"`` (exactly one: its count
    read), and the replay again under ``torch.profiler`` (CUDA activity):
    the seconds the card was busy over the window and the idle share;
+   then ``FusionPipeline.run_sweep`` over the first 16 frames (the
+   session's planar wire) against the same frames through ``step``, and
+   ``extract_fetcher`` in two waves against ``extract_host`` on the
+   replay's final grid;
 5. reduced sweeps through the port on the card and through its plain path
    on the CPU: the fusion path compared by cell id with the benchmark's
    structural gates, the TSDF path by cell id (grid sums exact, extract
@@ -83,7 +92,10 @@ and prints no result line):
    the same sweep (0.8 mm pitch, S=11 samples, K=8 batches), then
    ``process()``; checks overflow counters, frames, unit normals, the PCD
    and CSV files, the surface count against phase 3's final grid, and
-   that T1, T2, T3 and K2 launched; prints the stage timers;
+   that T1-T4 and K2 launched; prints the stage timers; then one K=8
+   TSDF depth dispatch under ``set_sync_debug_mode("error")`` (no
+   synchronizing call) and the replay again under ``torch.profiler``
+   (the idle share, as phase 4's);
 7. the PointCloud2 ingest path: the sweep of phase 4 turned on the host
    into ``runtime/decode.CloudFrame`` records of its valid pixels (their
    f32 camera points, bit-identical to the card's unprojection, and their
@@ -113,8 +125,10 @@ and prints no result line):
     ``process()``; checks overflow counters, that the surface holds phase
     6's depth-replay cells and integer weights with tsdf values within
     ``checks.TSDF_TOL`` (the records are the depth wire's unprojection,
-    bit for bit), and that T2p, T1, K2 and T3 launched; prints the rate,
-    the host decode and the stage timers;
+    bit for bit), and that T2p, T1, T4, K2 and T3 launched; prints the
+    rate, the host decode and the stage timers; then one K=8 planar TSDF
+    dispatch (count prefixes of the records) under
+    ``set_sync_debug_mode("error")`` (no synchronizing call);
 11. the queries (BASELINE config 4) on phase 4's checkpoint:
     ``radius_outlier_mask`` (r=2, min_neighbors=5), ``occupied_neighbor_
     counts`` of the occupied slots (by cell, phase 3's B11 counts) and
@@ -221,6 +235,8 @@ KERNELS = {
                      "hifi_fusion_tpu/ops/refine.py:262"),
     "buffer_replay": ("hifi_fusion_tpu_torch/csrc/buffer_replay.cu",
                       "hifi_fusion_tpu/ops/refine.py:341"),
+    "tsdf_reduce": ("hifi_fusion_tpu_torch/csrc/tsdf_reduce.cu",
+                    "hifi_fusion_tpu/models/tsdf.py:135"),
 }
 # the kernels of the fusion family's integrate and refine, on every path
 # that fuses (B3, B6, B7 around K2, K3, K4)
@@ -229,16 +245,21 @@ FUSION_STEPS = ("hash_insert", "integrate_lanes", "dep_stream", "normal_fit",
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend",) + FUSION_STEPS
 PLANAR_PATH = ("planar_frontend",) + FUSION_STEPS
-TSDF_PATH = ("tsdf_lanes", "segscan", "hash_insert", "tsdf_surface")
-TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "hash_insert",
-                    "tsdf_surface")
+TSDF_PATH = ("tsdf_lanes", "segscan", "tsdf_reduce", "hash_insert",
+             "tsdf_surface")
+TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "tsdf_reduce",
+                    "hash_insert", "tsdf_surface")
 QUERY_PATH = ("neighbor_count",)
 # the routed sharded path: B12 routes, K5 takes the routed world points
 ROUTED_PATH = ("route_pack", "planar_frontend") + FUSION_STEPS
 CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
-            "segscan", "tsdf_surface") + FUSION_STEPS
+            "segscan", "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
+# an extract fetched in two waves, as an export takes it: the CSV's
+# columns, then the PCD's and the rest
+CSV_WAVE = ("sd", "mean_dist", "sd_dist", "count")
+PCD_WAVE = ("cell", "centroid", "normal", "rgb", "n_pts")
 # tools/tsdf_bench.py:39-76: 11 samples across +-4 mm, a 2^21 K=8 budget
 TSDF_PARAMS = {"n_samples": 11, "batch_unique": 1 << 21}
 
@@ -618,24 +639,32 @@ B6_WRITES = ("key", "dep", "dep_count", "overflow_dep", "overflow_probe")
 def kernel_split(torch, fn, setup) -> dict:
     """Device ms by kernel name of one ``fn(*setup())`` call, from a
     ``torch.profiler`` trace (CUDA activity; library kernels and copies
-    included), after one untraced call."""
+    included), after one untraced call.  The traces have dropped the
+    first launches of a window (a call's first kernel, once a whole
+    call), so a sleep kernel goes first and is left out of the split,
+    and a trace without any device activity is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
     fn(*setup())
-    args = setup()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
     out = {}
-    for e in trace.get("traceEvents", ()):
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
-                and "dur" in e:
-            name = e["name"].split("(")[0].split("<")[0][:48]
-            out[name] = out.get(name, 0.0) + e["dur"] / 1e3
+    for _ in range(3):
+        args = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SLEEP_CYCLES)
+            fn(*args)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            trace = json.loads(path.read_text())
+        for e in trace.get("traceEvents", ()):
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                    and "dur" in e and "spin_kernel" not in e["name"]:
+                name = e["name"].split("(")[0].split("<")[0][:48]
+                out[name] = out.get(name, 0.0) + e["dur"] / 1e3
+        if out:
+            break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -948,12 +977,16 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     lib_ms = segscan_yardstick(torch, scatter, tsdf, sid, svals, starts)
     res["segscan"] = timed(err, ms, pms, bounds.segscan(*svals.shape),
                            lib_ms)
-    del sid, svals, words, starts, cases
+    sums6 = scatter.segment_sums(svals, starts)
+    del svals, words, starts, cases
 
     # T3, bit-exact, at two shapes: the grid after two batches, and the
     # final grid of the replay (every batch of the sweep), the one its
     # real call in process() meets
     grid, (table, ids, n_live) = tsdf_state(hashing, pipe, batch, rays)
+    # T4 on the same batch's sorted lanes into the grid after two batches
+    res["tsdf_reduce"] = check_tsdf_reduce(torch, tcfg, grid, sid, sums6)
+    del sid, sums6
     final = pipe.init()
     for i in range(len(frames) // K):
         pipe.step_batch_depth(final, *batch(i), rays)
@@ -967,6 +1000,94 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     res["hash_insert/tsdf"] = check_insert(torch, table, ids, n_live,
                                            tcfg.base.max_probes, "tsdf")
     return res
+
+
+def check_tsdf_reduce(torch, tcfg, grid, sid, sums6) -> dict:
+    """Phase 3, T4 (``tsdf.tsdf_reduce``, with K2): the third K=8 batch's
+    sorted lanes ``sid`` and T1's sums ``sums6`` into the config-5 grid
+    after two batches, against the plain version: the key set, ``vstats``
+    by cell bit for bit, both counters and the live count K2 was handed
+    (with its ids) exactly.  Returns the ``timed`` entry with the call's
+    counts and its device ms by kernel."""
+    from hifi_fusion_tpu_torch import bounds, checks, convert
+    from hifi_fusion_tpu_torch.models import tsdf
+    from hifi_fusion_tpu_torch.ops import hashing
+    K = tcfg.base.max_batch_frames
+    M = sid.numel()
+    U = min(tcfg.batch_unique or K * 4 * tcfg.base.max_unique_per_frame, M,
+            tsdf.tail(tcfg))
+    C = tcfg.base.capacity
+
+    def setup():
+        return (with_copies(grid, ("key", "vstats", "overflow_probe",
+                                   "overflow_unique")), sid, sums6, U, tcfg)
+
+    gk, gp = setup()[0], setup()[0]
+    (ck,) = captured_inserts(hashing, lambda: tsdf.tsdf_reduce(
+        gk, *setup()[1:]))
+    (cp,) = captured_inserts(hashing, lambda: tsdf.tsdf_reduce_plain(
+        gp, *setup()[1:]))
+    torch.cuda.synchronize()
+    a, b = (checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(g, tcfg), C)
+            for g in (gk, gp))
+    n_live = ck[1].numel() if ck[2] is None else int(ck[2])
+    problems = [k for k in ("overflow_probe", "overflow_unique")
+                if a[k] != b[k]]
+    if not np.array_equal(a["cell"], b["cell"]):
+        problems.append("cell sets differ")
+    elif a["vstats"].tobytes() != b["vstats"].tobytes():
+        problems.append("vstats differ")
+    if n_live != cp[1].numel() or not torch.equal(ck[1][:n_live], cp[1]):
+        problems.append(f"live ids differ: {n_live} / {cp[1].numel()}")
+    if problems:
+        raise AssertionError(f"tsdf_reduce: {problems}")
+    v = sid[sid != tsdf.BIG]
+    counts = {"M": M, "U": U,
+              "n_u": int(torch.unique_consecutive(v).numel()),
+              "n_live": n_live,
+              "n_new": int(((grid.key < 0) & (gk.key >= 0)).sum()),
+              "n_placed": n_live - int(gk.overflow_probe
+                                       - grid.overflow_probe)}
+    log(f"phase 3: tsdf_reduce: {counts}; the key set, vstats (bits) and "
+        f"counters exact against the plain version")
+    ms, pms = time_pair(torch, tsdf.tsdf_reduce, tsdf.tsdf_reduce_plain,
+                        lambda: cold(torch, *setup()))
+    split = kernel_split(torch, tsdf.tsdf_reduce, setup)
+    log(f"phase 3: tsdf_reduce by kernel, ms: {json.dumps(split)}")
+    return {**timed(0.0, ms, pms, bounds.tsdf_reduce(
+        M, n_live, counts["n_new"], counts["n_placed"])), **counts,
+        "passes_ms": split}
+
+
+def tsdf_sync_reads(torch, tcfg, frames, clouds, rays_np, wire) -> int:
+    """One K=8 TSDF dispatch on ``wire`` ("depth": phase 6's; "planar":
+    phase 10's count prefixes of the records) under
+    ``torch.cuda.set_sync_debug_mode("error")``, its inputs put on the
+    card first, as the session does: raises on any synchronizing call,
+    else returns 0."""
+    from hifi_fusion_tpu_torch.models import tsdf
+    pipe = tsdf.TsdfPipeline(tcfg, "cuda")
+    fs = frames[:8]
+    if wire == "depth":
+        args = (pipe.put(np.stack([f.depth_q for f in fs])),
+                pipe.put(np.stack([f.rgb565 for f in fs])),
+                pipe.put(np.full((8,), fs[0].count, np.int32)),
+                pipe.put(np.stack([f.pose for f in fs])), pipe.put(rays_np))
+        step = pipe.step_batch_depth
+    else:
+        args = record_wire(torch, clouds[:8], tcfg.base.max_points, "cuda")
+        step = pipe.step_batch
+    grid = pipe.init()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(grid, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if int(grid.frames) != 8 or int((grid.key >= 0).sum()) == 0:
+        raise AssertionError(f"TSDF {wire} dispatch: {int(grid.frames)} "
+                             f"frames")
+    return 0
 
 
 def record_wire(torch, clouds, N, dev):
@@ -1293,6 +1414,56 @@ def sync_reads(torch, cfg, frames, rays_np) -> tuple:
     return 0, len(syncs)
 
 
+def pipeline_api(torch, cfg, frames, rays, dev) -> dict:
+    """Phase 4, the pipeline's other entry points on the card:
+    ``FusionPipeline.run_sweep`` over the first 16 frames on the session's
+    planar wire (each frame's valid pixels as a count prefix) against the
+    same frames through ``step`` (the grids by cell id, the extracts'
+    cells and counts exactly); ``extract_fetcher`` in two waves (the
+    CSV's fields, then the PCD's and the rest) against ``extract_host`` on
+    the fusion replay's final grid (``fusion_final_grid``), every field
+    bit for bit.  Raises on a difference; returns the counts."""
+    from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline
+    pipe = FusionPipeline(cfg, dev)
+    fs = frames[:16]
+    F, N = len(fs), fs[0].depth_q.shape[0]
+    pts = np.zeros((F, 3, N), np.float32)
+    rgb = np.zeros((F, 3, N), np.float32)
+    counts = np.zeros((F,), np.int32)
+    for k, f in enumerate(fs):
+        keep = f.depth_q > 0
+        n = counts[k] = int(keep.sum())
+        pts[k, :, :n] = f.points_f32[:, keep]
+        rgb[k, :, :n] = rgb8(f.rgb565[keep]).T
+    wire = [pipe.put(a) for a in (pts, rgb, counts,
+                                  np.stack([f.pose for f in fs]))]
+    sweep = pipe.run_sweep(pipe.init(), *wire)
+    steps = pipe.init()
+    for k in range(F):
+        steps = pipe.step(steps, *(a[k] for a in wire))
+    problems = grid_problems(cfg, sweep, steps)
+    a, b = pipe.extract_host(sweep), pipe.extract_host(steps)
+    if not (np.array_equal(a["cell"], b["cell"])
+            and np.array_equal(a["count"], b["count"])):
+        problems.append("extract cells or counts differ")
+    if problems or int(sweep.frames) != F:
+        raise AssertionError(f"run_sweep against step: {problems}")
+    grid = fusion_final_grid(cfg, frames, rays, dev)
+    fetch = pipe.extract_fetcher(grid)
+    waves = {**fetch(CSV_WAVE), **fetch(PCD_WAVE)}
+    whole = pipe.extract_host(grid)
+    bad = [f for f in whole if waves[f].tobytes() != whole[f].tobytes()]
+    if bad or set(waves) != set(whole) or whole["cell"].size == 0:
+        raise AssertionError(f"extract_fetcher against extract_host: {bad}")
+    out = {"sweep_frames": F, "sweep_voxels": int(a["cell"].size),
+           "sweep_hits": int(a["count"].sum()),
+           "fetched_voxels": int(whole["cell"].size)}
+    log(f"phase 4: run_sweep of {F} frames equals {F} steps (grid by cell, "
+        f"extract cells and counts); extract_fetcher's two waves equal "
+        f"extract_host on the replay's final grid: {json.dumps(out)}")
+    return out
+
+
 def busy_intervals(trace: dict) -> list:
     """Merged [start, end) microsecond intervals of the device's kernels,
     copies and fills in a ``torch.profiler`` chrome trace."""
@@ -1309,8 +1480,9 @@ def busy_intervals(trace: dict) -> list:
     return merged
 
 
-def profiled_replay(torch, cfg, frames, rays_np) -> dict:
-    """The fusion replay (push to the end of ``drain()``) under
+def profiled_replay(torch, cfg, frames, rays_np, **session_kw) -> dict:
+    """The depth replay (push to the end of ``drain()``; the fusion family
+    unless ``session_kw`` names another model) under
     ``torch.profiler`` with CUDA activity: the window's host seconds, the
     seconds the card ran a kernel, a copy or a fill (the union of their
     spans), the busy share of the window and of the span from the first
@@ -1321,7 +1493,7 @@ def profiled_replay(torch, cfg, frames, rays_np) -> dict:
     from hifi_fusion_tpu_torch.runtime.session import FusionSession
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         with FusionSession(cfg, "cuda", output_dir=tmp,
-                           batch_fill_wait=10.0) as s:
+                           batch_fill_wait=10.0, **session_kw) as s:
             s.start()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1697,6 +1869,9 @@ def tsdf_planar_replay(torch, tcfg, frames, clouds, tsdf_host, dev,
         f"surface voxels, phase 6's cells and weights, tsdf within "
         f"{err:.3g}; launches {launches}; {json.dumps(r['grid_metrics'])}")
     log(f"phase 10: stage timers {json.dumps(m['stage_timers'])}")
+    n_sync = tsdf_sync_reads(torch, tcfg, frames, clouds, None, "planar")
+    log(f"phase 10: synchronizing calls of a K=8 TSDF planar dispatch: "
+        f"{n_sync} (under sync_debug_mode 'error')")
     return launches
 
 
@@ -2456,6 +2631,8 @@ def main() -> int:
     log(f"phase 4: the replay under torch.profiler ({card}): "
         f"{json.dumps(idle)}; idle share of the window "
         f"{1.0 - idle['busy_share']:.4f}")
+    pipeline_api(torch, cfg, frames, rays, dev)
+    torch.cuda.empty_cache()
 
     # -- phase 5 -------------------------------------------------------
     srays = camera_rays(128, 96, fx=160.0, fy=160.0)
@@ -2507,6 +2684,15 @@ def main() -> int:
         f"{mpts:.3f} Mpts/s ({card}); process() {t_proc:.3f} s; {n} "
         f"surface voxels; launches {tsdf_launches}; {json.dumps(gm)}")
     log(f"phase 6: stage timers {json.dumps(m['stage_timers'])}")
+    n_sync = tsdf_sync_reads(torch, tcfg, frames, clouds, rays_np, "depth")
+    log(f"phase 6: synchronizing calls of a K=8 TSDF depth dispatch: "
+        f"{n_sync} (under sync_debug_mode 'error')")
+    idle = profiled_replay(torch, tcfg.base, frames, rays_np, model="tsdf",
+                           model_params=TSDF_PARAMS)
+    log(f"phase 6: the TSDF replay under torch.profiler ({card}): "
+        f"{json.dumps(idle)}; idle share of the window "
+        f"{1.0 - idle['busy_share']:.4f}")
+    torch.cuda.empty_cache()
 
     # -- phase 7 -------------------------------------------------------
     kernels.reset_launches()

@@ -199,6 +199,18 @@ def route_pack(K: int, N: int, n: int, Bs: int, wire: str = "depth",
     return bound(wire_bytes + K * n * n * Bs * 25, 30 * px)
 
 
+def tsdf_reduce(M: int, n_live: int, n_new: int, n_placed: int) -> dict:
+    """T4 on M sorted sample lanes whose first ``n_live`` runs are kept:
+    each sorted id read (4 B a lane); per kept run its last lane's six
+    sums read (24 B) and its key probe (4 B), a new cell's key written
+    (4 B); per placed cell its six ``vstats`` words read and written
+    (48 B); the two counters.  The compacted ids and sums are the
+    kernel's own and not counted.  One f32 add a placed cell and
+    channel."""
+    return bound(M * 4 + n_live * 28 + n_new * 4 + n_placed * 48 + 8,
+                 6 * n_placed)
+
+
 def integrate_lanes(NA: int, n_sv: int, U: int, n_new: int, n_first: int,
                     n_words: int, n_want: int,
                     store_color: bool = True) -> dict:

@@ -238,6 +238,37 @@ def segscan_case(pattern: str, kind: str, dtype, k: int, n: int,
     return vals, starts
 
 
+def tsdf_reduce_case(n_cells: int, M: int, seed: int, n_valid: int = -1,
+                     run_lanes: int = 0, id_range: int = 1 << 20) -> tuple:
+    """Numpy sample lanes ``(skey (M,) i32, vals6 (6, M) f32)`` for the
+    TSDF batch reduce, unsorted as the sample map leaves them:
+    ``n_valid`` lanes (default 3/4 of M) in ``n_cells`` distinct cell ids
+    drawn from [0, id_range), each on at least one lane, the first on
+    ``run_lanes`` lanes more when given (a run across scan tiles); the
+    other lanes INT32_MAX with zero values.  Values as the sample map
+    makes them: weight 1, sdf normal(0, 3e-3), a colour and its count of
+    one on a third of the valid lanes."""
+    rng = np.random.default_rng(seed)
+    n_valid = 3 * M // 4 if n_valid < 0 else n_valid
+    if not n_cells <= n_valid - run_lanes <= M or (n_valid and not n_cells):
+        raise ValueError(f"{n_cells} cells on {n_valid} of {M} lanes")
+    ids = rng.choice(id_range, n_cells, replace=False).astype(np.int32)
+    cell = np.concatenate([
+        np.arange(n_cells), np.zeros(run_lanes, np.int64),
+        rng.integers(0, max(n_cells, 1), n_valid - n_cells - run_lanes)])
+    skey = np.full(M, np.iinfo(np.int32).max, np.int32)
+    skey[:n_valid] = ids[cell] if n_cells else skey[:0]
+    vals6 = np.zeros((6, M), np.float32)
+    vals6[0, :n_valid] = 1.0
+    vals6[1, :n_valid] = rng.normal(0.0, 3e-3, n_valid)
+    mid = np.zeros(M, bool)
+    mid[:n_valid] = rng.random(n_valid) < 1 / 3
+    vals6[2:5, mid] = rng.integers(0, 256, (3, int(mid.sum())))
+    vals6[5, mid] = 1.0
+    perm = rng.permutation(M)
+    return skey[perm], np.ascontiguousarray(vals6[:, perm])
+
+
 TSDF_TOL = {"tsdf": 1e-6, "centroid": 1e-6, "normal": 1e-5}
 
 

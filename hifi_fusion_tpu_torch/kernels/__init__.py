@@ -45,7 +45,7 @@ LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
             "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
             "neighbor_count": 0, "route_pack": 0, "integrate_lanes": 0,
-            "refine_lines": 0, "buffer_replay": 0}
+            "refine_lines": 0, "buffer_replay": 0, "tsdf_reduce": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -122,6 +122,11 @@ _SIGNATURES = {
     # geo_i, radius, cyl_stats, stream
     "launch_buffer_replay": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                              _I, _P, _P, _F, _P, _P],
+    # sid, M, U, sums6, uids, usums, overflow_unique, scratch, words,
+    # stream
+    "launch_tsdf_reduce_runs": [_P, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    # U, scratch (the live count), uslot, usums, vstats, stream
+    "launch_tsdf_reduce_scatter": [_I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

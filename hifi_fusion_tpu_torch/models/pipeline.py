@@ -18,7 +18,8 @@ import torch
 from .. import convert
 from ..config import FusionConfig
 from ..grid import GridState, grid_metrics, make_grid
-from ..ops.extract import ExtractResult, extract, to_host
+from ..ops.extract import (EXTRACT_FIELDS, ExtractResult, cached_fetch,
+                           extract, to_host)
 from ..ops.integrate import (integrate, integrate_batch,
                              integrate_batch_depth, integrate_depth)
 from ..ops.refine import refine_pass
@@ -76,9 +77,13 @@ class FusionPipeline:
         the layout ``put_state`` of either package takes."""
         return convert.grid_to_jax(grid, self.config)
 
-    def _refine_if_due(self, grid: GridState) -> GridState:
-        if self.config.refine_every > 0 \
-                and refine_due(int(grid.frames), 1, self.config):
+    def _refine_if_due(self, grid: GridState, frames=None) -> GridState:
+        """A refine when a mark falls on the frame just integrated;
+        ``frames`` is the grid's frame count where the caller keeps it on
+        the host, else it is read from the grid."""
+        if self.config.refine_every > 0 and refine_due(
+                int(grid.frames) if frames is None else frames, 1,
+                self.config):
             grid = self.refine(grid)
         return grid
 
@@ -115,14 +120,57 @@ class FusionPipeline:
         return integrate_batch_depth(grid, depth, rgb565, counts, poses,
                                      rays, self.config, self.offset)
 
+    def integrate(self, grid: GridState, points, rgb, mask, pose,
+                  quant=None, rays=None) -> GridState:
+        """One frame, no refine (JAX ``integrate_frame``).  With ``rays``
+        the depth wire: (N,) u16 depth in ``points``, (N,) rgb565 in
+        ``rgb`` and a 0-d i32 count in ``mask``
+        (``ops/integrate.integrate_depth``); else the planar wires of
+        ``ops/integrate.integrate``, ``quant`` for u16 points."""
+        if rays is not None:
+            return integrate_depth(grid, points, rgb, mask, pose, rays,
+                                   self.config, self.offset)
+        return integrate(grid, points, rgb, mask, pose, self.config, quant,
+                         self.offset)
+
+    def run_sweep(self, grid: GridState, points, rgb, mask, poses
+                  ) -> GridState:
+        """The (F, ...) planar frames in order, each integrated and then
+        refined when a mark falls on it: F calls of ``step`` (JAX
+        ``fusion_sweep``).  The grid's frame count is read once, before
+        the first frame, and counted on the host after it."""
+        frames = int(grid.frames) if self.config.refine_every > 0 else 0
+        for f in range(poses.shape[0]):
+            grid = integrate(grid, points[f], rgb[f], mask[f], poses[f],
+                             self.config, offset=self.offset)
+            frames += 1
+            grid = self._refine_if_due(grid, frames)
+        return grid
+
     def refine(self, grid: GridState) -> GridState:
         return refine_pass(grid, self.config, self.offset)
 
     def extract(self, grid: GridState, x_range=None) -> ExtractResult:
         return extract(grid, self.config, x_range, self.offset)
 
-    def extract_host(self, grid: GridState) -> dict:
-        return to_host(self.extract(grid))
+    def extract_host(self, grid: GridState, fields=None) -> dict:
+        """The extract as host arrays; ``fields`` selects the fields
+        fetched (None: every field)."""
+        return to_host(self.extract(grid), fields)
+
+    def extract_fetcher(self, grid: GridState):
+        """One extraction, fetched by field on demand: ``fetch(fields=None,
+        prefetch=())`` copies only the fields not fetched before and keeps
+        them, so a caller can take the CSV's fields first and the PCD's
+        later (JAX pipeline.py:225-278).  The whole extract always comes
+        back, as the JAX fetcher's uncapped retry returns it:
+        ``config.extract_cap`` is a TPU transfer workaround the port
+        ignores.  ``centroid`` is fetched as itself (the JAX package
+        rebuilds it from a slimmer wire) and ``prefetch`` does nothing
+        (``to_host``)."""
+        result = self.extract(grid)
+        return cached_fetch(lambda need: to_host(result, need),
+                            EXTRACT_FIELDS)
 
     def grid_metrics(self, grid: GridState) -> dict:
         return grid_metrics(grid, self.config)

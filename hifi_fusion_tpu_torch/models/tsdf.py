@@ -14,11 +14,13 @@ a sample's cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf =
 2. one stable sort of the cell ids and a gather of the six channels;
 3. the per-cell sums, kernel T1 (``ops/scatter.segment_sums``), in the
    JAX package's association order, so the sums are bit-identical;
-4. the first U segment starts and ends (the U smallest ids; the rest are
-   dropped and counted in ``overflow_unique``, as the JAX package's
-   ``[:U]`` drops them);
-5. find-or-insert of those U ids, kernel K2 (``ops/hashing``);
-6. one scatter of the per-cell sums into ``vstats`` at the unique slots.
+4. kernel T4 (``tsdf_reduce``): the first U segment starts and ends (the
+   U smallest ids; the rest are dropped and counted in
+   ``overflow_unique``, as the JAX package's ``[:U]`` drops them),
+   compacted on the card; find-or-insert of those ids, kernel K2
+   (``ops/hashing``), given their live count on the card; one scatter
+   of the per-cell sums into ``vstats`` at the unique slots.  On the
+   card a batch reads nothing back to the host.
 
 Surface extraction (``extract_tsdf``) masks the cells with weight >=
 min_weight and |tsdf| < surface_band * res, sorts them by id, and per
@@ -270,22 +272,27 @@ def tsdf_lanes_planar(points: torch.Tensor, rgb: torch.Tensor,
     return skey, vals6
 
 
-# -- reduce and integrate --------------------------------------------------
+# -- reduce (kernel T4) and integrate -------------------------------------
 
-def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
-                U: int, config: TsdfConfig) -> TsdfGrid:
-    """Sample lanes -> grid update in place (tsdf.py:135-182): sort by cell
-    id, segment sums, find-or-insert of the first U distinct cells, one
-    scatter of their sums.  Does not count frames."""
-    C = config.base.capacity
+def sorted_sums(skey: torch.Tensor, vals6: torch.Tensor):
+    """Sample lanes -> ``(sid (M,) i32 sorted stably, INT32_MAX last,
+    sums6 (6,M) f32)``: the six channels gathered in sorted order and
+    summed by T1 (``scatter.segment_sums``), each run's total at its last
+    lane, in the JAX package's association order (tsdf.py:146-156)."""
     sid, order = torch.sort(skey, stable=True)
-    svals = vals6[:, order]
+    starts = segment_starts(sid, sid != BIG)
+    return sid, segment_sums(vals6[:, order], starts).contiguous()
+
+
+def tsdf_reduce_plain(grid: TsdfGrid, sid, sums6, U: int,
+                      config: TsdfConfig) -> TsdfGrid:
+    """Plain version of T4: the run starts and ends as masks, the first U
+    of each by ``torch.nonzero`` (two reads back to the host) and the run
+    count (a third), K2, one ``index_add_`` of the placed cells' sums."""
+    C = config.base.capacity
     svalid = sid != BIG
-    starts = segment_starts(sid, svalid)
-    ends = segment_ends(sid, svalid)
-    sums6 = segment_sums(svals, starts)
-    spos = torch.nonzero(starts).squeeze(1)
-    epos = torch.nonzero(ends).squeeze(1)
+    spos = torch.nonzero(segment_starts(sid, svalid)).squeeze(1)
+    epos = torch.nonzero(segment_ends(sid, svalid)).squeeze(1)
     grid.overflow_unique += max(spos.numel() - U, 0)
     uids = sid[spos[:U]]
     usums = sums6[:, epos[:U]]
@@ -297,13 +304,63 @@ def tsdf_reduce(grid: TsdfGrid, skey: torch.Tensor, vals6: torch.Tensor,
     return grid
 
 
+def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, sums6: torch.Tensor,
+                U: int, config: TsdfConfig) -> TsdfGrid:
+    """The batch's sorted lanes (``sorted_sums``) -> the grid update in
+    place (tsdf.py:156-182): the first U distinct cells (the smallest ids;
+    the rest are dropped and counted in ``overflow_unique``), their
+    find-or-insert (K2, failures into ``overflow_probe``) and one add of
+    each placed cell's six sums into ``vstats``.  Does not count frames.
+
+    Kernel T4 (``csrc/tsdf_reduce.cu``, counted as ``tsdf_reduce``) with
+    K2 on CUDA tensors, reading nothing back to the host: a memset and
+    the runs pass (a look-back run scan that compacts the first U runs'
+    ids and sums and leaves their live count on the card) before K2, the
+    scatter after it.  Its plain version on CPU tensors.  The slots may
+    differ (K2's CAS race); the grid is the same by cell id, ``vstats``
+    bit for bit."""
+    M = sid.numel()
+    dev = sid.device
+    kernels.check_inputs(dev, ("sid", sid, torch.int32, (M,)),
+                         ("sums6", sums6, torch.float32, (6, M)))
+    if not 0 <= U <= M or grid.device != dev:
+        raise ValueError(f"U {U} of {M} lanes, grid on {grid.device}")
+    if dev.type == "cpu":
+        return tsdf_reduce_plain(grid, sid, sums6, U, config)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if M >= 2 ** 31 - 2 * kernels.RUN_SCAN_TILE:
+        raise ValueError(f"{M} lanes: T4 indexes lanes in 32 bits")
+    words = 2 + kernels.lookback_words(M, kernels.RUN_SCAN_TILE)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    uids = torch.empty((U,), dtype=torch.int32, device=dev)
+    usums = torch.empty((6, U), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    st = kernels.stream()
+    kernels.check(lib.launch_tsdf_reduce_runs(
+        sid.data_ptr(), M, U, sums6.data_ptr(), uids.data_ptr(),
+        usums.data_ptr(), grid.overflow_unique.data_ptr(),
+        scratch.data_ptr(), words, st), "tsdf_reduce")
+    if U:
+        uslot = hashing.lookup_or_insert(grid.key, uids,
+                                         config.base.max_probes,
+                                         config.base.capacity,
+                                         grid.overflow_probe,
+                                         n_live=scratch[0])
+        kernels.check(lib.launch_tsdf_reduce_scatter(
+            U, scratch.data_ptr(), uslot.data_ptr(), usums.data_ptr(),
+            grid.vstats.data_ptr(), st), "tsdf_reduce")
+    kernels.LAUNCHES["tsdf_reduce"] += 1
+    return grid
+
+
 def _reduce_batch(grid: TsdfGrid, skey, vals6, K: int,
                   config: TsdfConfig) -> TsdfGrid:
     """A K-frame batch's lanes into the grid; U follows tsdf.py:211-213."""
     U = min(config.batch_unique
             or K * 4 * config.base.max_unique_per_frame,
             skey.shape[0], tail(config))
-    tsdf_reduce(grid, skey, vals6, U, config)
+    tsdf_reduce(grid, *sorted_sums(skey, vals6), U, config)
     grid.frames += K
     return grid
 
@@ -312,7 +369,7 @@ def _reduce_frame(grid: TsdfGrid, skey, vals6,
                   config: TsdfConfig) -> TsdfGrid:
     """One frame's lanes into the grid; U follows tsdf.py:188."""
     U = min(4 * config.base.max_unique_per_frame, skey.shape[0])
-    tsdf_reduce(grid, skey, vals6, U, config)
+    tsdf_reduce(grid, *sorted_sums(skey, vals6), U, config)
     grid.frames += 1
     return grid
 
@@ -544,15 +601,24 @@ class TsdfPipeline:
     def extract(self, grid: TsdfGrid) -> TsdfExtract:
         return extract_tsdf(grid, self.config)
 
-    def extract_host(self, grid: TsdfGrid) -> dict:
+    def extract_host(self, grid: TsdfGrid, fields=None) -> dict:
         """The surface as the export dict ``process()`` writes
         (tsdf.py:380-410): ``count`` = the rounded weight (samples fused),
         ``mean_dist`` = the TSDF value, ``sd`` / ``sd_dist`` / ``var_t``
-        zeros (TSDF keeps first moments only)."""
+        zeros (TSDF keeps first moments only).  ``fields`` selects keys of
+        the dict (None: all); the whole result is fetched either way (the
+        JAX package returns every key whatever ``fields`` says)."""
+        return self.extract_fetcher(grid)(fields)
+
+    def extract_fetcher(self, grid: TsdfGrid):
+        """``fetch(fields=None, prefetch=())`` over one extraction
+        (tsdf.py:412-419): the eight-lane surface is fetched once, here,
+        and each call takes the keys ``fields`` names (None: all);
+        ``prefetch`` does nothing."""
         h = tsdf_to_host(self.extract(grid))
         n = h["cell"].shape[0]
         count = np.round(h["weight"]).astype(np.int32)
-        return {
+        out = {
             "cell": h["cell"], "centroid": h["centroid"],
             "normal": h["normal"], "rgb": h["rgb"], "count": count,
             "mean_dist": h["tsdf"], "sd": np.zeros((n, 3), np.float32),
@@ -560,6 +626,11 @@ class TsdfPipeline:
             "var_t": np.zeros((n,), np.float32),
             "rgb_packed": _pack_rgb_float(h["rgb"]).view(np.uint32),
         }
+
+        def fetch(fields=None, prefetch=()):
+            return out if fields is None else {k: out[k] for k in fields}
+
+        return fetch
 
     def grid_metrics(self, grid: TsdfGrid) -> dict:
         """tsdf.py:421-431: occupied slots, frames, both overflow

@@ -55,6 +55,17 @@ def smallest_eigenpair_sym(a00, a01, a02, a11, a12, a22
     return eig_min * scale, vec
 
 
+def smallest_eigenpair(cov: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The matrix interface (JAX eigen33.py:108): (..., 3, 3) symmetric
+    matrices -> ``(eigenvalue (...), eigenvector (..., 3))``, over
+    ``smallest_eigenpair_sym``."""
+    val, vec = smallest_eigenpair_sym(
+        cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2])
+    return val, torch.movedim(vec, 0, -1)
+
+
 def _eigenvector_sym(a00, a01, a02, a11, a12, a22, lam) -> torch.Tensor:
     """Null-space direction of (A - lam I) via the largest row cross
     product; a coordinate axis when the matrix is fully degenerate."""

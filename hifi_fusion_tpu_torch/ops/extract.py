@@ -41,6 +41,8 @@ class ExtractResult:
     n_pts: torch.Tensor      # (n,)  i32 raw points in the voxel
 
 
+EXTRACT_FIELDS = ("cell", "centroid", "normal", "sd", "mean_dist", "sd_dist",
+                  "count", "rgb", "n_pts")
 _PLANAR_FIELDS = ("centroid", "normal", "sd", "rgb")
 
 
@@ -78,12 +80,36 @@ def extract(grid: GridState, config: FusionConfig, x_range=None,
         rgb=rgb, n_pts=npts.to(torch.int32))
 
 
-def to_host(result: ExtractResult) -> dict:
+def to_host(result: ExtractResult, fields=None, prefetch=()) -> dict:
     """ExtractResult -> dict of numpy arrays; planar fields become
-    row-major (n,3)."""
+    row-major (n,3).  ``fields``: the fields fetched, in that order (None:
+    every field of ``EXTRACT_FIELDS``).  ``prefetch`` is the JAX package's
+    argument (extract.py:196) and does nothing here: each call copies the
+    fields it was asked for, synchronously."""
+    want = EXTRACT_FIELDS if fields is None else tuple(fields)
+    unknown = [f for f in want if f not in EXTRACT_FIELDS]
+    if unknown:
+        raise ValueError(f"unknown extract fields {unknown}")
     out = {}
-    for f in (fld.name for fld in dataclasses.fields(result)
-              if fld.name != "n_valid"):
+    for f in want:
         a = getattr(result, f).detach().cpu().numpy()
         out[f] = np.ascontiguousarray(a.T) if f in _PLANAR_FIELDS else a
     return out
+
+
+def cached_fetch(fetch_fields, all_fields):
+    """``fetch(fields=None, prefetch=())`` over one extraction, as the JAX
+    package's ``extract_fetcher``s return it: ``fetch_fields(names)`` is
+    called only for the fields not fetched before, and every field is
+    kept, so a caller can take one set of fields now and another later
+    for one host copy each; ``fields=None`` means ``all_fields``."""
+    cache = {}
+
+    def fetch(fields=None, prefetch=()):
+        want = tuple(all_fields if fields is None else fields)
+        need = [f for f in want if f not in cache]
+        if need:
+            cache.update(fetch_fields(need))
+        return {f: cache[f] for f in want}
+
+    return fetch

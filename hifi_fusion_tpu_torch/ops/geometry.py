@@ -135,6 +135,17 @@ def center_of_ids(ids: torch.Tensor, config: FusionConfig,
     return cell_center(shift(id_to_coords(ids, config), offset), config)
 
 
+def project_to_axis(q: torch.Tensor, n: torch.Tensor):
+    """Centered axis projection, planar layout (JAX geometry.py:105):
+    ``q = p - axis_center`` and the unit normal ``n``, both (3, ...) ->
+    ``(q_proj (3, ...), dist (...))`` with ``q_proj = (q.n) n`` and
+    ``dist = |q - q_proj|``, each sum taken in axis order."""
+    t = (q[0] * n[0] + q[1] * n[1]) + q[2] * n[2]
+    q_proj = t[None] * n
+    r = q - q_proj
+    return q_proj, torch.sqrt((r[0] * r[0] + r[1] * r[1]) + r[2] * r[2])
+
+
 def transform_points(points: torch.Tensor, pose: torch.Tensor
                      ) -> torch.Tensor:
     """SE(3) transform of (3, N) points by a (4, 4) pose, or of (K, 3, N)

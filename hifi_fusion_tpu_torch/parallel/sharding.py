@@ -48,12 +48,10 @@ from .. import convert
 from ..config import FusionConfig
 from ..grid import GridState
 from ..models.pipeline import FusionPipeline
-from ..ops.extract import ExtractResult, to_host
+from ..ops.extract import (EXTRACT_FIELDS, ExtractResult, cached_fetch,
+                           to_host)
 from ..ops.integrate import integrate
 from . import routing
-
-_EXTRACT_FIELDS = ("cell", "centroid", "normal", "sd", "mean_dist",
-                   "sd_dist", "count", "rgb", "n_pts")
 
 
 def shard_devices(device, n: int) -> List[torch.device]:
@@ -254,16 +252,8 @@ class ShardedFusion:
         sharding.py:689-727; the shards' extracts are already on the
         host side of their one sync each)."""
         result = self.extract(grid)
-        cache = {}
-
-        def fetch(fields=None, prefetch=()):
-            want = tuple(fields) if fields is not None else _EXTRACT_FIELDS
-            need = [f for f in want if f not in cache]
-            if need:
-                cache.update(result.to_host(fields=need))
-            return {f: cache[f] for f in want}
-
-        return fetch
+        return cached_fetch(lambda need: result.to_host(fields=need),
+                            EXTRACT_FIELDS)
 
     def put_state(self, fields: dict):
         """Host arrays in the sharded JAX layout -> per-shard grids."""
@@ -320,12 +310,12 @@ class ShardedExtract:
         """The shards' core emissions concatenated in ascending x, local
         cell ids mapped to GLOBAL int64 ids by each shard's x offset
         (JAX sharding.py:607-632).  ``fields`` restricts the fetch."""
-        keys = tuple(fields) if fields is not None else _EXTRACT_FIELDS
+        keys = tuple(fields) if fields is not None else EXTRACT_FIELDS
         _, dy, dz = self.config.dims
         yz = np.int64(dy) * np.int64(dz)
         parts = {k: [] for k in keys}
         for s, r in enumerate(self.results):
-            host = to_host(r)
+            host = to_host(r, keys)
             for k in keys:
                 if k == "cell":
                     local = host["cell"].astype(np.int64)

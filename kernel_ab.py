@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Times kernels K1, K2 (at its three call shapes), K4, T1, K3, T3 (at two
 shapes), K5, T2p, B11 (at two shapes), B12 (on two wires, alone and with
-the exchange), B3, B6 and B7, K1 and K5 with a shard's offset, and the
-replays with the fusion replay's device idle share, of
-two or more checkouts of the PyTorch port on one CUDA card, in the order
-A, B, ..., ..., B, A.
+the exchange), B3, B6 and B7, the TSDF batch's reduce stage (T4 where a
+checkout has it), K1 and K5 with a shard's offset, and the replays with
+the fusion and TSDF replays' device idle shares, of two or more
+checkouts of the PyTorch port on one CUDA card, in the order A, B, ...,
+..., B, A.
 
     python3 kernel_ab.py [--only SECTION,...] A_DIR B_DIR [C_DIR ...]
 
 ``--only`` runs the sections named and reports None for the rest:
 ``fusion`` (K1, K2 at its fusion shapes, K3, K4), ``lanes`` (B3, B6,
-B7), ``tsdf`` (T1, K2's TSDF shape, T3), ``planar`` (K5, T2p),
-``routed`` (the offsets, B12), ``queries`` (B11) and ``replays``.
+B7), ``tsdf`` (T1, K2's TSDF shape, the reduce stage, T3), ``planar``
+(K5, T2p), ``routed`` (the offsets, B12), ``queries`` (B11) and
+``replays``.
 
 Each run is a process of its own that imports ``hifi_fusion_tpu_torch``
 from its checkout (building that checkout's kernels there) and prints one
@@ -31,6 +33,14 @@ the ``lanes`` section's checks, which come from the checkout's own
 * ``normal_fit``: K4 on the refine's candidates after that batch;
 * ``segscan``: T1 (kind add) on the batch's sorted sample lanes at TSDF
   config 5 (6 x 27,033,600 lanes);
+* ``tsdf_reduce/stage``: the TSDF batch's reduce stage on those lanes
+  into the grid after two batches, through the checkout's own API: the
+  sort, the gather, T1, and then T4 with K2 where the checkout has it
+  (``tsdf.sorted_sums``), else the two ``nonzero`` reads, K2 and
+  ``index_add_``; its events span any wait of the host on a read;
+* ``tsdf_reduce``: for a checkout with T4, its call alone (with K2) on
+  the sorted lanes and T1's sums, and its device ms by kernel of one
+  profiled call (``tsdf_reduce/passes``);
 * ``dep_stream``: K3 on the batch's points at the fusion bench config;
 * ``tsdf_surface/batch2``, ``tsdf_surface/replay``: T3 on the surface of
   the config-5 grid after two batches and after every batch of the sweep
@@ -76,7 +86,9 @@ the ``lanes`` section's checks, which come from the checkout's own
 * ``fusion_profile``: the fusion replay again under ``torch.profiler``
   (``chip_smoke.profiled_replay``): the seconds the card was busy over
   the window, the busy share, and ``device_step`` / ``refine`` a
-  dispatch.
+  dispatch;
+* ``tsdf_profile``: the TSDF replay under ``torch.profiler`` the same
+  way (``chip_smoke.profiled_replay`` with the TSDF session).
 
 Kernel times are device times (``chip_smoke.device_ms``): the median of 10
 calls, CUDA events around each call, with a sleep kernel ahead of the
@@ -111,7 +123,8 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "planar_frontend/offset", "route_pack/depth", "route_pack/planar",
          "route_exchange/depth", "route_exchange/planar",
          "integrate_lanes", "refine_lines", "refine_lines/sort",
-         "refine_lines/hand", "buffer_replay")
+         "refine_lines/hand", "buffer_replay", "tsdf_reduce",
+         "tsdf_reduce/stage")
 
 
 def smoke(path=HERE / "chip_smoke.py"):
@@ -271,6 +284,28 @@ def child(root: str, sections=SECTIONS) -> dict:
         res["hash_insert/tsdf"] = time_insert(table, ids, n_live,
                                               tcfg.base.max_probes)
         del table, ids
+        skey, vals = tsdf.tsdf_lanes(*batch(2), rays, tcfg)
+        U = min(tcfg.batch_unique, skey.numel(), tsdf.tail(tcfg))
+        if hasattr(tsdf, "sorted_sums"):
+            def stage(g):
+                tsdf.tsdf_reduce(g, *tsdf.sorted_sums(skey, vals), U, tcfg)
+        else:
+            def stage(g):
+                tsdf.tsdf_reduce(g, skey, vals, U, tcfg)
+        res["tsdf_reduce/stage"] = cs.device_ms(
+            torch, stage, lambda: (cs.copy_grid(grid),), reps=REPS)
+        if hasattr(tsdf, "sorted_sums"):
+            sid, sums6 = tsdf.sorted_sums(skey, vals)
+
+            def t4():
+                return (cs.copy_grid(grid), sid, sums6, U, tcfg)
+            res["tsdf_reduce"] = cs.device_ms(
+                torch, tsdf.tsdf_reduce, lambda: cs.cold(torch, *t4()),
+                reps=REPS)
+            res["tsdf_reduce/passes"] = cs.kernel_split(
+                torch, tsdf.tsdf_reduce, t4)
+            del sid, sums6
+        del skey, vals
         final = tp.init()
         for i in range(cs.FRAMES // 8):
             tp.step_batch_depth(final, *batch(i), rays)
@@ -347,7 +382,7 @@ def child(root: str, sections=SECTIONS) -> dict:
                 for k in ("device_step", "refine") if t.get(k, {}).get(
                     "count")}
 
-    res["fusion_profile"] = None
+    res["fusion_profile"] = res["tsdf_profile"] = None
     for name in ("fusion", "tsdf", "planar", "sharded"):
         res[f"{name}_mpts"] = None
     if "replays" in sections:
@@ -362,6 +397,9 @@ def child(root: str, sections=SECTIONS) -> dict:
                            tmp + "/t", model="tsdf",
                            model_params=cs.TSDF_PARAMS)[1]
             res["tsdf_mpts"] = cs.FRAMES * cs.WIDTH * cs.HEIGHT / dt / 1e6
+            res["tsdf_profile"] = cs.profiled_replay(
+                torch, tcfg.base, frames, rays_np, model="tsdf",
+                model_params=cs.TSDF_PARAMS)
             if hasattr(session.FusionSession, "push_frame"):
                 _, dt, _, m = cs.replay(torch, cfg, frames, None, "cuda",
                                         tmp + "/p",
@@ -419,9 +457,11 @@ def main(argv) -> int:
               f"{r.get('fusion_dispatch_ms')}, planar "
               f"{r.get('planar_dispatch_ms')}, sharded "
               f"{r.get('sharded_dispatch_ms')}; fusion replay profiled "
-              f"{json.dumps(r['fusion_profile'])}; by kernel: B6 "
+              f"{json.dumps(r['fusion_profile'])}; TSDF replay profiled "
+              f"{json.dumps(r['tsdf_profile'])}; by kernel: B6 "
               f"{r.get('refine_lines/passes')}, B7 "
-              f"{r.get('buffer_replay/passes')}", flush=True)
+              f"{r.get('buffer_replay/passes')}, T4 "
+              f"{r.get('tsdf_reduce/passes')}", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

@@ -1247,3 +1247,92 @@ def test_integrate_reads_nothing_and_refine_reads_once(state):
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
     assert int(g.normal_found.sum()) > int(grid.normal_found.sum())
+
+
+# T4 (tsdf.tsdf_reduce): (cells, lanes M, valid lanes (-1: 3/4 M), extra
+# lanes of the first cell's run, budget U), each reduced into a grid that
+# holds a first batch of 500 cells
+T4_TILE = kernels.RUN_SCAN_TILE
+T4_CASES = {
+    "under_u": (700, 12288, -1, 0, 1000),
+    "u_plus_one": (1001, 12288, -1, 0, 1000),
+    "well_over_u": (4000, 12288, -1, 0, 1000),
+    "empty": (0, 12288, 0, 0, 1000),
+    "one_run": (1, 12288, 12288, 0, 1000),
+    "run_across_tiles": (3000, 5 * T4_TILE + 777, -1, 2 * T4_TILE + 5,
+                         4000),
+    "u_equals_m": (750, 1000, -1, 0, 1000),
+    "many_tiles": (40000, 100 * T4_TILE + 3, -1, 0, 20000),
+}
+
+
+def _t4_reduce(fn, grid, skey, vals6, U, cfg):
+    fn(grid, *tsdf.sorted_sums(skey, vals6), U, cfg)
+    torch.cuda.synchronize()
+    return checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(grid, cfg),
+                               cfg.base.capacity)
+
+
+@pytest.mark.parametrize("case", list(T4_CASES))
+def test_tsdf_reduce_matches_plain(dev, case):
+    """T4 with K2 against its plain version on the same lanes: the cell
+    set, both counters exactly and ``vstats`` bit for bit by cell."""
+    n_cells, M, n_valid, run, U = T4_CASES[case]
+    first = checks.tsdf_reduce_case(500, 12288, seed=1)
+    skey, vals6 = (torch.from_numpy(a).to(dev) for a in
+                   checks.tsdf_reduce_case(n_cells, M, seed=2,
+                                           n_valid=n_valid, run_lanes=run))
+    grid = tsdf.make_tsdf_grid(TCFG, dev)
+    tsdf.tsdf_reduce(grid, *tsdf.sorted_sums(
+        *(torch.from_numpy(a).to(dev) for a in first)), 1000, TCFG)
+    gk, gp = _grid_copy(grid), _grid_copy(grid)
+    n0 = kernels.LAUNCHES["tsdf_reduce"]
+    a = _t4_reduce(tsdf.tsdf_reduce, gk, skey, vals6, U, TCFG)
+    assert kernels.LAUNCHES["tsdf_reduce"] == n0 + 1
+    b = _t4_reduce(tsdf.tsdf_reduce_plain, gp, skey, vals6, U, TCFG)
+    assert np.array_equal(a["cell"], b["cell"])
+    assert a["vstats"].tobytes() == b["vstats"].tobytes()
+    for k in ("overflow_unique", "overflow_probe"):
+        assert a[k] == b[k], k
+    assert a["overflow_unique"] == max(n_cells - U, 0)
+    assert a["overflow_probe"] == 0
+
+
+def test_tsdf_reduce_probe_overflow(dev):
+    """A 256-slot table with 4 probes: K2's CAS race may place other ids
+    than the plain version's election, so each placed cell's sums are held
+    to the plain reduce into a table that fits them all, bit for bit, and
+    every kept id is either placed or counted in ``overflow_probe``."""
+    U = 1000
+    skey, vals6 = (torch.from_numpy(a).to(dev) for a in
+                   checks.tsdf_reduce_case(600, 12288, seed=3))
+    tiny = dataclasses.replace(TCFG, base=dataclasses.replace(
+        TCFG.base, capacity_log2=8, max_probes=4))
+    a = _t4_reduce(tsdf.tsdf_reduce, tsdf.make_tsdf_grid(tiny, dev), skey,
+                   vals6, U, tiny)
+    ref = _t4_reduce(tsdf.tsdf_reduce_plain, tsdf.make_tsdf_grid(TCFG, dev),
+                     skey, vals6, U, TCFG)
+    assert a["overflow_probe"] > 0 and a["overflow_unique"] == 0
+    assert a["cell"].size + a["overflow_probe"] == ref["cell"].size == 600
+    rows = np.searchsorted(ref["cell"], a["cell"])
+    assert np.array_equal(ref["cell"][rows], a["cell"])
+    assert a["vstats"].tobytes() == ref["vstats"][rows].tobytes()
+
+
+def test_tsdf_reduce_reads_nothing(dev):
+    """A TSDF batch on the card, T4 alone and a whole depth dispatch,
+    enqueues everything without a synchronizing call."""
+    skey, vals6 = (torch.from_numpy(a).to(dev) for a in
+                   checks.tsdf_reduce_case(4000, 12288, seed=4))
+    pipe = tsdf.TsdfPipeline(TCFG, dev)
+    rays = pipe.put(RAYS)
+    grid = pipe.init()
+    b = _batch(pipe, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tsdf.tsdf_reduce(grid, *tsdf.sorted_sums(skey, vals6), 1000, TCFG)
+        pipe.step_batch_depth(grid, *b, rays)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(grid.overflow_unique) >= 3000 and int(grid.frames) == 4

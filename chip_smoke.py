@@ -65,10 +65,14 @@ and prints no result line):
    device ms by stage (candidates with the host read, K4, B6, the
    buffer's sort and gather, B7, reclamation) and whole; T4
    (``tsdf.tsdf_reduce``, with K2) on the TSDF third K=8 batch's sorted
-   lanes and T1's sums into the config-5 grid after two batches, against
-   its plain version: the key set, ``vstats`` by cell bit for bit, both
-   overflow counters and the live count K2 is handed, with its ids,
-   exactly; its counts, bound, share and device ms by kernel;
+   ids, the sort's order and the sample lanes into the config-5 grid
+   after two batches, against its plain version: the key set, ``vstats``
+   by cell bit for bit, both overflow counters and the live count K2 is
+   handed, with its ids, exactly, and a repeat launch bit-identical by
+   cell; the same on five edge cases of seeded lanes (a run of over 1024
+   lanes over three ladder blocks, one over ~78 blocks, runs across every
+   block edge, M <= 1024 under and over U); its counts, bound, share and
+   device ms by kernel;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -92,7 +96,7 @@ and prints no result line):
    the same sweep (0.8 mm pitch, S=11 samples, K=8 batches), then
    ``process()``; checks overflow counters, frames, unit normals, the PCD
    and CSV files, the surface count against phase 3's final grid, and
-   that T1-T4 and K2 launched; prints the stage timers; then one K=8
+   that T2-T4 and K2 launched; prints the stage timers; then one K=8
    TSDF depth dispatch under ``set_sync_debug_mode("error")`` (no
    synchronizing call) and the replay again under ``torch.profiler``
    (the idle share, as phase 4's);
@@ -125,7 +129,7 @@ and prints no result line):
     ``process()``; checks overflow counters, that the surface holds phase
     6's depth-replay cells and integer weights with tsdf values within
     ``checks.TSDF_TOL`` (the records are the depth wire's unprojection,
-    bit for bit), and that T2p, T1, T4, K2 and T3 launched; prints the
+    bit for bit), and that T2p, T4, K2 and T3 launched; prints the
     rate, the host decode and the stage timers; then one K=8 planar TSDF
     dispatch (count prefixes of the records) under
     ``set_sync_debug_mode("error")`` (no synchronizing call);
@@ -245,15 +249,16 @@ FUSION_STEPS = ("hash_insert", "integrate_lanes", "dep_stream", "normal_fit",
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend",) + FUSION_STEPS
 PLANAR_PATH = ("planar_frontend",) + FUSION_STEPS
-TSDF_PATH = ("tsdf_lanes", "segscan", "tsdf_reduce", "hash_insert",
-             "tsdf_surface")
-TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "segscan", "tsdf_reduce",
-                    "hash_insert", "tsdf_surface")
+# (T4 runs P2's segment ladder itself, so T1 launches in phase 3's own
+# check only)
+TSDF_PATH = ("tsdf_lanes", "tsdf_reduce", "hash_insert", "tsdf_surface")
+TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "tsdf_reduce", "hash_insert",
+                    "tsdf_surface")
 QUERY_PATH = ("neighbor_count",)
 # the routed sharded path: B12 routes, K5 takes the routed world points
 ROUTED_PATH = ("route_pack", "planar_frontend") + FUSION_STEPS
 CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
-            "segscan", "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
+            "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
 # an extract fetched in two waves, as an export takes it: the CSV's
@@ -951,9 +956,10 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
 
     # T1: bit-exact for every kind, on the batch's sorted lanes and on a
     # flat-ladder prefix (n <= 1024)
-    sid, order = torch.sort(lanes[0], stable=True)
-    svals = lanes[1][:, order]
-    del lanes, order
+    sid, order = tsdf.sort_lanes(lanes[0])
+    vals6 = lanes[1]
+    svals = vals6[:, order]
+    del lanes
     starts = scatter.segment_starts(sid, sid != tsdf.BIG)
     words = svals.view(torch.int32)
     cases = [("add", svals), ("first", svals), ("first", words),
@@ -977,16 +983,17 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     lib_ms = segscan_yardstick(torch, scatter, tsdf, sid, svals, starts)
     res["segscan"] = timed(err, ms, pms, bounds.segscan(*svals.shape),
                            lib_ms)
-    sums6 = scatter.segment_sums(svals, starts)
     del svals, words, starts, cases
 
     # T3, bit-exact, at two shapes: the grid after two batches, and the
     # final grid of the replay (every batch of the sweep), the one its
     # real call in process() meets
     grid, (table, ids, n_live) = tsdf_state(hashing, pipe, batch, rays)
-    # T4 on the same batch's sorted lanes into the grid after two batches
-    res["tsdf_reduce"] = check_tsdf_reduce(torch, tcfg, grid, sid, sums6)
-    del sid, sums6
+    # T4 on the same batch's sorted ids, order and lanes into the grid
+    # after two batches
+    res["tsdf_reduce"] = check_tsdf_reduce(torch, tcfg, grid, sid, order,
+                                           vals6)
+    del sid, order, vals6
     final = pipe.init()
     for i in range(len(frames) // K):
         pipe.step_batch_depth(final, *batch(i), rays)
@@ -1002,43 +1009,61 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
     return res
 
 
-def check_tsdf_reduce(torch, tcfg, grid, sid, sums6) -> dict:
-    """Phase 3, T4 (``tsdf.tsdf_reduce``, with K2): the third K=8 batch's
-    sorted lanes ``sid`` and T1's sums ``sums6`` into the config-5 grid
-    after two batches, against the plain version: the key set, ``vstats``
-    by cell bit for bit, both counters and the live count K2 was handed
-    (with its ids) exactly.  Returns the ``timed`` entry with the call's
-    counts and its device ms by kernel."""
-    from hifi_fusion_tpu_torch import bounds, checks, convert
+def t4_problems(torch, tcfg, grid, sid, order, vals6, U) -> tuple:
+    """T4 (``tsdf.tsdf_reduce``, with K2) and its plain version on copies
+    of ``grid``, and T4 again on a third copy: the problems found (the
+    key set, ``vstats`` by cell bit for bit, both counters and the live
+    count K2 is handed, with its ids, against the plain version; the
+    repeat's cells, ``vstats`` words and counters against the first
+    launch), the kernel's grid and K2's captured call."""
+    from hifi_fusion_tpu_torch import checks, convert
     from hifi_fusion_tpu_torch.models import tsdf
     from hifi_fusion_tpu_torch.ops import hashing
-    K = tcfg.base.max_batch_frames
-    M = sid.numel()
-    U = min(tcfg.batch_unique or K * 4 * tcfg.base.max_unique_per_frame, M,
-            tsdf.tail(tcfg))
     C = tcfg.base.capacity
-
-    def setup():
-        return (with_copies(grid, ("key", "vstats", "overflow_probe",
-                                   "overflow_unique")), sid, sums6, U, tcfg)
-
-    gk, gp = setup()[0], setup()[0]
-    (ck,) = captured_inserts(hashing, lambda: tsdf.tsdf_reduce(
-        gk, *setup()[1:]))
-    (cp,) = captured_inserts(hashing, lambda: tsdf.tsdf_reduce_plain(
-        gp, *setup()[1:]))
+    fields = ("key", "vstats", "overflow_probe", "overflow_unique")
+    gk, gp, gr = (with_copies(grid, fields) for _ in range(3))
+    (ck,), (cp,), _ = (
+        captured_inserts(hashing, lambda: fn(g, sid, order, vals6, U, tcfg))
+        for fn, g in ((tsdf.tsdf_reduce, gk), (tsdf.tsdf_reduce_plain, gp),
+                      (tsdf.tsdf_reduce, gr)))
     torch.cuda.synchronize()
-    a, b = (checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(g, tcfg), C)
-            for g in (gk, gp))
+    a, b, r = (checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(g, tcfg), C)
+               for g in (gk, gp, gr))
     n_live = ck[1].numel() if ck[2] is None else int(ck[2])
     problems = [k for k in ("overflow_probe", "overflow_unique")
-                if a[k] != b[k]]
+                if a[k] != b[k] or a[k] != r[k]]
     if not np.array_equal(a["cell"], b["cell"]):
         problems.append("cell sets differ")
     elif a["vstats"].tobytes() != b["vstats"].tobytes():
         problems.append("vstats differ")
+    if not np.array_equal(a["cell"], r["cell"]) \
+            or a["vstats"].tobytes() != r["vstats"].tobytes():
+        problems.append("a repeat differs")
     if n_live != cp[1].numel() or not torch.equal(ck[1][:n_live], cp[1]):
         problems.append(f"live ids differ: {n_live} / {cp[1].numel()}")
+    return problems, gk, n_live
+
+
+def check_tsdf_reduce(torch, tcfg, grid, sid, order, vals6) -> dict:
+    """Phase 3, T4 (``tsdf.tsdf_reduce``, with K2): the third K=8 batch's
+    sorted ids ``sid``, the sort's ``order`` and the sample lanes
+    ``vals6`` into the config-5 grid after two batches, against the plain
+    version: the key set, ``vstats`` by cell bit for bit, both counters
+    and the live count K2 was handed (with its ids) exactly, and a repeat
+    launch bit-identical by cell; then the same on the lanes' edge cases
+    (``checks.tsdf_reduce_case``): a run of over 1024 lanes over three
+    ladder blocks, one over ~78 blocks, runs of a few lanes across every
+    block edge, and M <= 1024 (the flat ladder) under and over U.
+    Returns the ``timed`` entry with the call's counts and its device ms
+    by kernel."""
+    from hifi_fusion_tpu_torch import bounds, checks
+    from hifi_fusion_tpu_torch.models import tsdf
+    K = tcfg.base.max_batch_frames
+    M = sid.numel()
+    U = min(tcfg.batch_unique or K * 4 * tcfg.base.max_unique_per_frame, M,
+            tsdf.tail(tcfg))
+    problems, gk, n_live = t4_problems(torch, tcfg, grid, sid, order,
+                                       vals6, U)
     if problems:
         raise AssertionError(f"tsdf_reduce: {problems}")
     v = sid[sid != tsdf.BIG]
@@ -1048,8 +1073,32 @@ def check_tsdf_reduce(torch, tcfg, grid, sid, sums6) -> dict:
               "n_new": int(((grid.key < 0) & (gk.key >= 0)).sum()),
               "n_placed": n_live - int(gk.overflow_probe
                                        - grid.overflow_probe)}
+    del gk
     log(f"phase 3: tsdf_reduce: {counts}; the key set, vstats (bits) and "
-        f"counters exact against the plain version")
+        f"counters exact against the plain version, a repeat bit-identical")
+    # (cells, lanes, valid lanes (-1: 3/4), extra lanes of one run, U)
+    edge = {"run over three blocks": (300, 12288, -1, 2000, 1000),
+            "run over 78 blocks": (200, 65536, -1, 40000, 4000),
+            "block edges": (3000, 12288, -1, 0, 4000),
+            "flat": (500, 1000, -1, 0, 1000),
+            "flat over U": (700, 1000, -1, 0, 300)}
+    for name, (n_cells, m, n_valid, run, u) in edge.items():
+        skey, vals = (torch.from_numpy(x).cuda() for x in
+                      checks.tsdf_reduce_case(n_cells, m, seed=7,
+                                              n_valid=n_valid,
+                                              run_lanes=run))
+        s, o = tsdf.sort_lanes(skey)
+        problems = t4_problems(torch, tcfg, grid, s, o, vals, u)[0]
+        if problems:
+            raise AssertionError(f"tsdf_reduce, {name}: {problems}")
+    log(f"phase 3: tsdf_reduce: exact against the plain version and on a "
+        f"repeat in {len(edge)} edge cases ({', '.join(edge)})")
+
+    def setup():
+        return (with_copies(grid, ("key", "vstats", "overflow_probe",
+                                   "overflow_unique")), sid, order, vals6,
+                U, tcfg)
+
     ms, pms = time_pair(torch, tsdf.tsdf_reduce, tsdf.tsdf_reduce_plain,
                         lambda: cold(torch, *setup()))
     split = kernel_split(torch, tsdf.tsdf_reduce, setup)

@@ -201,14 +201,14 @@ def route_pack(K: int, N: int, n: int, Bs: int, wire: str = "depth",
 
 def tsdf_reduce(M: int, n_live: int, n_new: int, n_placed: int) -> dict:
     """T4 on M sorted sample lanes whose first ``n_live`` runs are kept:
-    each sorted id read (4 B a lane); per kept run its last lane's six
-    sums read (24 B) and its key probe (4 B), a new cell's key written
-    (4 B); per placed cell its six ``vstats`` words read and written
-    (48 B); the two counters.  The compacted ids and sums are the
-    kernel's own and not counted.  One f32 add a placed cell and
-    channel."""
-    return bound(M * 4 + n_live * 28 + n_new * 4 + n_placed * 48 + 8,
-                 6 * n_placed)
+    per lane its sorted id (4 B), its order word (8 B) and its six values
+    through the order (24 B) read; per kept run its key probe (4 B), a new
+    cell's key written (4 B); per placed cell its six ``vstats`` words
+    read and written (48 B); the two counters.  The compacted ids and sums
+    are the kernel's own and not counted.  One f32 add a lane and channel
+    (the segment sums) and a placed cell and channel."""
+    return bound(M * 36 + n_live * 4 + n_new * 4 + n_placed * 48 + 8,
+                 6 * (M + n_placed))
 
 
 def integrate_lanes(NA: int, n_sv: int, U: int, n_new: int, n_first: int,

@@ -122,9 +122,10 @@ _SIGNATURES = {
     # geo_i, radius, cyl_stats, stream
     "launch_buffer_replay": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                              _I, _P, _P, _F, _P, _P],
-    # sid, M, U, sums6, uids, usums, overflow_unique, scratch, words,
-    # stream
-    "launch_tsdf_reduce_runs": [_P, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    # sid, order, vals6, M, U, uids, usums, overflow_unique, scratch,
+    # words, aux, stream
+    "launch_tsdf_reduce_runs": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _P,
+                                _P],
     # U, scratch (the live count), uslot, usums, vstats, stream
     "launch_tsdf_reduce_scatter": [_I, _P, _P, _P, _P, _P],
 }
@@ -257,9 +258,11 @@ def geometry_args(config, offset=None):
 
 
 # lanes a tile of csrc/scan.cuh's run scan (RUN_SCAN_TILE) and of B3's
-# pass B (csrc/integrate_lanes.cu B3_TILE)
+# pass B (csrc/integrate_lanes.cu B3_TILE); lanes a block of P2's segment
+# ladder (csrc/segladder.cuh SEG_BS, ops/scatter.py BS)
 RUN_SCAN_TILE = 4096
 B3_TILE = 512
+SEG_BS = 512
 
 
 def lookback_words(n: int, tile: int) -> int:

@@ -11,16 +11,18 @@ a sample's cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf =
    and colour with count prefixes or a lane mask): the lane test, the pose
    transform, ray, distance, direction, the S sample positions, their
    cell ids and the six values, lanes laid out ``k*S*N + s*N + n``;
-2. one stable sort of the cell ids and a gather of the six channels;
-3. the per-cell sums, kernel T1 (``ops/scatter.segment_sums``), in the
-   JAX package's association order, so the sums are bit-identical;
-4. kernel T4 (``tsdf_reduce``): the first U segment starts and ends (the
-   U smallest ids; the rest are dropped and counted in
-   ``overflow_unique``, as the JAX package's ``[:U]`` drops them),
+2. one stable sort of the cell ids (``sort_lanes``);
+3. kernel T4 (``tsdf_reduce``), from the sorted ids and the sort's order:
+   the six channels gathered through the order, their per-cell sums by
+   P2's segment ladder in the JAX package's association order (so the
+   sums are bit-identical; kernel T1's ladder, ``csrc/segladder.cuh``),
+   the first U runs (the U smallest ids; the rest are dropped and counted
+   in ``overflow_unique``, as the JAX package's ``[:U]`` drops them)
    compacted on the card; find-or-insert of those ids, kernel K2
-   (``ops/hashing``), given their live count on the card; one scatter
-   of the per-cell sums into ``vstats`` at the unique slots.  On the
-   card a batch reads nothing back to the host.
+   (``ops/hashing``), given their live count on the card; one scatter of
+   the per-cell sums into ``vstats`` at the unique slots.  On the card a
+   batch reads nothing back to the host, and no full-width plane of
+   gathered values or running sums is written.
 
 Surface extraction (``extract_tsdf``) masks the cells with weight >=
 min_weight and |tsdf| < surface_band * res, sorts them by id, and per
@@ -50,7 +52,8 @@ from ..config import FusionConfig
 from ..io.pcd import _pack_rgb_float
 from ..ops import geometry, hashing
 from ..ops.integrate import _u16_to_i32
-from ..ops.scatter import segment_ends, segment_starts, segment_sums
+from ..ops.scatter import (segment_ends, segment_reduce_plain,
+                           segment_starts)
 
 BIG = torch.iinfo(torch.int32).max     # sort key of an invalid sample lane
 
@@ -274,24 +277,25 @@ def tsdf_lanes_planar(points: torch.Tensor, rgb: torch.Tensor,
 
 # -- reduce (kernel T4) and integrate -------------------------------------
 
-def sorted_sums(skey: torch.Tensor, vals6: torch.Tensor):
+def sort_lanes(skey: torch.Tensor):
     """Sample lanes -> ``(sid (M,) i32 sorted stably, INT32_MAX last,
-    sums6 (6,M) f32)``: the six channels gathered in sorted order and
-    summed by T1 (``scatter.segment_sums``), each run's total at its last
-    lane, in the JAX package's association order (tsdf.py:146-156)."""
-    sid, order = torch.sort(skey, stable=True)
-    starts = segment_starts(sid, sid != BIG)
-    return sid, segment_sums(vals6[:, order], starts).contiguous()
+    order (M,) i64)``: the JAX package's one sort of the batch
+    (tsdf.py:146-150), whose payload T4 gathers through ``order``."""
+    return torch.sort(skey, stable=True)
 
 
-def tsdf_reduce_plain(grid: TsdfGrid, sid, sums6, U: int,
+def tsdf_reduce_plain(grid: TsdfGrid, sid, order, vals6, U: int,
                       config: TsdfConfig) -> TsdfGrid:
-    """Plain version of T4: the run starts and ends as masks, the first U
-    of each by ``torch.nonzero`` (two reads back to the host) and the run
-    count (a third), K2, one ``index_add_`` of the placed cells' sums."""
+    """Plain version of T4: the six channels gathered in sorted order,
+    their running sums by T1's plain ladder (``segment_reduce_plain``),
+    the run starts and ends as masks, the first U of each by
+    ``torch.nonzero`` (two reads back to the host) and the run count (a
+    third), K2, one ``index_add_`` of the placed cells' sums."""
     C = config.base.capacity
     svalid = sid != BIG
-    spos = torch.nonzero(segment_starts(sid, svalid)).squeeze(1)
+    starts = segment_starts(sid, svalid)
+    sums6 = segment_reduce_plain(vals6[:, order], starts, "add")
+    spos = torch.nonzero(starts).squeeze(1)
     epos = torch.nonzero(segment_ends(sid, svalid)).squeeze(1)
     grid.overflow_unique += max(spos.numel() - U, 0)
     uids = sid[spos[:U]]
@@ -304,43 +308,50 @@ def tsdf_reduce_plain(grid: TsdfGrid, sid, sums6, U: int,
     return grid
 
 
-def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, sums6: torch.Tensor,
-                U: int, config: TsdfConfig) -> TsdfGrid:
-    """The batch's sorted lanes (``sorted_sums``) -> the grid update in
-    place (tsdf.py:156-182): the first U distinct cells (the smallest ids;
-    the rest are dropped and counted in ``overflow_unique``), their
-    find-or-insert (K2, failures into ``overflow_probe``) and one add of
-    each placed cell's six sums into ``vstats``.  Does not count frames.
+def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, order: torch.Tensor,
+                vals6: torch.Tensor, U: int, config: TsdfConfig) -> TsdfGrid:
+    """The batch's sorted ids and the sort's order (``sort_lanes``) and
+    its (6,M) sample values in lane order -> the grid update in place
+    (tsdf.py:146-182): each cell's six sums in the JAX package's ladder
+    order, the first U distinct cells (the smallest ids; the rest are
+    dropped and counted in ``overflow_unique``), their find-or-insert (K2,
+    failures into ``overflow_probe``) and one add of each placed cell's
+    six sums into ``vstats``.  Does not count frames.
 
     Kernel T4 (``csrc/tsdf_reduce.cu``, counted as ``tsdf_reduce``) with
-    K2 on CUDA tensors, reading nothing back to the host: a memset and
-    the runs pass (a look-back run scan that compacts the first U runs'
-    ids and sums and leaves their live count on the card) before K2, the
-    scatter after it.  Its plain version on CPU tensors.  The slots may
-    differ (K2's CAS race); the grid is the same by cell id, ``vstats``
-    bit for bit."""
+    K2 on CUDA tensors, reading nothing back to the host: a memset, the
+    runs pass (the gather through ``order``, the segment ladder and a
+    look-back run scan that compacts the first U runs' ids and sums and
+    leaves their live count on the card) and the carries of the runs that
+    cross a ladder block before K2, the scatter after it.  Its plain
+    version on CPU tensors.  The slots may differ (K2's CAS race); the
+    grid is the same by cell id, ``vstats`` bit for bit."""
     M = sid.numel()
     dev = sid.device
     kernels.check_inputs(dev, ("sid", sid, torch.int32, (M,)),
-                         ("sums6", sums6, torch.float32, (6, M)))
+                         ("order", order, torch.int64, (M,)),
+                         ("vals6", vals6, torch.float32, (6, M)))
     if not 0 <= U <= M or grid.device != dev:
         raise ValueError(f"U {U} of {M} lanes, grid on {grid.device}")
     if dev.type == "cpu":
-        return tsdf_reduce_plain(grid, sid, sums6, U, config)
+        return tsdf_reduce_plain(grid, sid, order, vals6, U, config)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if M >= 2 ** 31 - 2 * kernels.RUN_SCAN_TILE:
         raise ValueError(f"{M} lanes: T4 indexes lanes in 32 bits")
     words = 2 + kernels.lookback_words(M, kernels.RUN_SCAN_TILE)
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    # per 512-lane ladder block: its six summaries, flag-OR and carry
+    aux = torch.empty((8, max(-(-M // kernels.SEG_BS), 1)),
+                      dtype=torch.int32, device=dev)
     uids = torch.empty((U,), dtype=torch.int32, device=dev)
     usums = torch.empty((6, U), dtype=torch.float32, device=dev)
     lib = kernels.library()
     st = kernels.stream()
     kernels.check(lib.launch_tsdf_reduce_runs(
-        sid.data_ptr(), M, U, sums6.data_ptr(), uids.data_ptr(),
-        usums.data_ptr(), grid.overflow_unique.data_ptr(),
-        scratch.data_ptr(), words, st), "tsdf_reduce")
+        sid.data_ptr(), order.data_ptr(), vals6.data_ptr(), M, U,
+        uids.data_ptr(), usums.data_ptr(), grid.overflow_unique.data_ptr(),
+        scratch.data_ptr(), words, aux.data_ptr(), st), "tsdf_reduce")
     if U:
         uslot = hashing.lookup_or_insert(grid.key, uids,
                                          config.base.max_probes,
@@ -360,7 +371,7 @@ def _reduce_batch(grid: TsdfGrid, skey, vals6, K: int,
     U = min(config.batch_unique
             or K * 4 * config.base.max_unique_per_frame,
             skey.shape[0], tail(config))
-    tsdf_reduce(grid, *sorted_sums(skey, vals6), U, config)
+    tsdf_reduce(grid, *sort_lanes(skey), vals6, U, config)
     grid.frames += K
     return grid
 
@@ -369,7 +380,7 @@ def _reduce_frame(grid: TsdfGrid, skey, vals6,
                   config: TsdfConfig) -> TsdfGrid:
     """One frame's lanes into the grid; U follows tsdf.py:188."""
     U = min(4 * config.base.max_unique_per_frame, skey.shape[0])
-    tsdf_reduce(grid, *sorted_sums(skey, vals6), U, config)
+    tsdf_reduce(grid, *sort_lanes(skey), vals6, U, config)
     grid.frames += 1
     return grid
 

@@ -12,8 +12,9 @@ The counterpart of the segment half of ``hifi_fusion_tpu/ops/scatter.py``
   whose lanes with no left neighbour in the block combine with zero, the
   same ladder over the block summaries, then one combine pass; a single
   flat ladder when ``n <= 1024``.  Kernel T1 (``csrc/segscan.cu``) on CUDA
-  tensors, ``segment_reduce_plain`` on CPU tensors.  The TSDF path sums its
-  sample lanes with it.
+  tensors, ``segment_reduce_plain`` on CPU tensors.  The TSDF batch reduce
+  (kernel T4) runs the same ladder itself (``csrc/segladder.cuh``), and
+  its plain version runs ``segment_reduce_plain``.
 
 The port's tensors carry no scratch tail, so the masked-scatter helpers
 have no counterpart.

@@ -3,15 +3,16 @@
 shapes), K5, T2p, B11 (at two shapes), B12 (on two wires, alone and with
 the exchange), B3, B6 and B7, the TSDF batch's reduce stage (T4 where a
 checkout has it), K1 and K5 with a shard's offset, and the replays with
-the fusion and TSDF replays' device idle shares, of two or more
+the fusion and TSDF replays' device idle shares, of one or more
 checkouts of the PyTorch port on one CUDA card, in the order A, B, ...,
 ..., B, A.
 
-    python3 kernel_ab.py [--only SECTION,...] A_DIR B_DIR [C_DIR ...]
+    python3 kernel_ab.py [--only SECTION,...] A_DIR [B_DIR ...]
 
 ``--only`` runs the sections named and reports None for the rest:
 ``fusion`` (K1, K2 at its fusion shapes, K3, K4), ``lanes`` (B3, B6,
-B7), ``tsdf`` (T1, K2's TSDF shape, the reduce stage, T3), ``planar``
+B7), ``tsdf`` (T1, K2's TSDF shape, the reduce stage and its parts, a
+dispatch's peak memory, T3), ``planar``
 (K5, T2p), ``routed`` (the offsets, B12), ``queries`` (B11) and
 ``replays``.
 
@@ -33,14 +34,28 @@ the ``lanes`` section's checks, which come from the checkout's own
 * ``normal_fit``: K4 on the refine's candidates after that batch;
 * ``segscan``: T1 (kind add) on the batch's sorted sample lanes at TSDF
   config 5 (6 x 27,033,600 lanes);
+* ``tsdf_reduce/sort``, ``tsdf_reduce/gather``: the batch's stable sort
+  of its 27,033,600 cell ids alone, and the gather of its six channels in
+  sorted order (``vals6[:, order]``) alone; ``tsdf_reduce/gather_rows``
+  the same gather from a lane-major copy of the channels (a lane's six
+  words in one 24-byte row), the layout T2 does not write;
 * ``tsdf_reduce/stage``: the TSDF batch's reduce stage on those lanes
-  into the grid after two batches, through the checkout's own API: the
-  sort, the gather, T1, and then T4 with K2 where the checkout has it
-  (``tsdf.sorted_sums``), else the two ``nonzero`` reads, K2 and
+  into the grid after two batches, through the checkout's own API: for a
+  checkout whose T4 takes the sort's order (``tsdf.sort_lanes``), the
+  sort and T4 with K2; for one whose T4 takes T1's sums
+  (``tsdf.sorted_sums``), the sort, the gather, T1 and T4 with K2; else
+  the sort, the gather, T1, the two ``nonzero`` reads, K2 and
   ``index_add_``; its events span any wait of the host on a read;
+* ``tsdf_reduce/after_sort``: the stage from the sorted ids and order on,
+  for a checkout with T4 (the first: T4; the second: the starts, the
+  gather, T1 and T4);
 * ``tsdf_reduce``: for a checkout with T4, its call alone (with K2) on
-  the sorted lanes and T1's sums, and its device ms by kernel of one
+  the inputs its contract takes, and its device ms by kernel of one
   profiled call (``tsdf_reduce/passes``);
+* ``tsdf_dispatch_peak_gb``: the peak device memory of one K=8 TSDF depth
+  dispatch (``step_batch_depth`` of the third batch into the grid after
+  two), above what was allocated when it began
+  (``torch.cuda.max_memory_allocated``);
 * ``dep_stream``: K3 on the batch's points at the fusion bench config;
 * ``tsdf_surface/batch2``, ``tsdf_surface/replay``: T3 on the surface of
   the config-5 grid after two batches and after every batch of the sweep
@@ -124,7 +139,8 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "route_exchange/depth", "route_exchange/planar",
          "integrate_lanes", "refine_lines", "refine_lines/sort",
          "refine_lines/hand", "buffer_replay", "tsdf_reduce",
-         "tsdf_reduce/stage")
+         "tsdf_reduce/stage", "tsdf_reduce/sort", "tsdf_reduce/gather",
+         "tsdf_reduce/gather_rows", "tsdf_reduce/after_sort")
 
 
 def smoke(path=HERE / "chip_smoke.py"):
@@ -213,7 +229,8 @@ def child(root: str, sections=SECTIONS) -> dict:
                                (), dtype=torch.int32, device=dev), *live)
         return cs.device_ms(torch, insert, setup, reps=REPS)
 
-    res = {"root": root, **{k: None for k in TIMED}}
+    res = {"root": root, "tsdf_dispatch_peak_gb": None,
+           **{k: None for k in TIMED}}
     # K2 (integrate, refine), K3, K4
     pipe = FusionPipeline(cfg, dev)
     batch = batcher(pipe)
@@ -286,25 +303,65 @@ def child(root: str, sections=SECTIONS) -> dict:
         del table, ids
         skey, vals = tsdf.tsdf_lanes(*batch(2), rays, tcfg)
         U = min(tcfg.batch_unique, skey.numel(), tsdf.tail(tcfg))
-        if hasattr(tsdf, "sorted_sums"):
+        sid, order = torch.sort(skey, stable=True)
+        res["tsdf_reduce/sort"] = cs.device_ms(
+            torch, lambda: torch.sort(skey, stable=True), tuple, reps=REPS)
+        res["tsdf_reduce/gather"] = cs.device_ms(
+            torch, lambda: vals[:, order], tuple, reps=REPS)
+        rows = vals.t().contiguous()
+        res["tsdf_reduce/gather_rows"] = cs.device_ms(
+            torch, lambda: rows[order], tuple, reps=REPS)
+        del rows
+        if hasattr(tsdf, "sort_lanes"):
+            # T4 gathers through the sort's order and runs the ladder
+            def stage(g):
+                tsdf.tsdf_reduce(g, *tsdf.sort_lanes(skey), vals, U, tcfg)
+
+            def after(g):
+                tsdf.tsdf_reduce(g, sid, order, vals, U, tcfg)
+            t4_args = (sid, order, vals)
+        elif hasattr(tsdf, "sorted_sums"):
+            # T4 on the gathered lanes and T1's sums
             def stage(g):
                 tsdf.tsdf_reduce(g, *tsdf.sorted_sums(skey, vals), U, tcfg)
+
+            def after(g):
+                starts = scatter.segment_starts(sid, sid != tsdf.BIG)
+                tsdf.tsdf_reduce(g, sid, scatter.segment_sums(
+                    vals[:, order], starts), U, tcfg)
+            t4_args = (sid, scatter.segment_sums(
+                vals[:, order], scatter.segment_starts(
+                    sid, sid != tsdf.BIG)).contiguous())
         else:
             def stage(g):
                 tsdf.tsdf_reduce(g, skey, vals, U, tcfg)
+            after, t4_args = None, None
         res["tsdf_reduce/stage"] = cs.device_ms(
             torch, stage, lambda: (cs.copy_grid(grid),), reps=REPS)
-        if hasattr(tsdf, "sorted_sums"):
-            sid, sums6 = tsdf.sorted_sums(skey, vals)
+        if after is not None:
+            res["tsdf_reduce/after_sort"] = cs.device_ms(
+                torch, after, lambda: (cs.copy_grid(grid),), reps=REPS)
 
             def t4():
-                return (cs.copy_grid(grid), sid, sums6, U, tcfg)
+                return (cs.copy_grid(grid), *t4_args, U, tcfg)
             res["tsdf_reduce"] = cs.device_ms(
                 torch, tsdf.tsdf_reduce, lambda: cs.cold(torch, *t4()),
                 reps=REPS)
             res["tsdf_reduce/passes"] = cs.kernel_split(
                 torch, tsdf.tsdf_reduce, t4)
-            del sid, sums6
+            del t4_args
+        # the peak device memory of one K=8 TSDF depth dispatch above what
+        # was allocated when it began
+        g = cs.copy_grid(grid)
+        b = batch(2)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tp.step_batch_depth(g, *b, rays)
+        torch.cuda.synchronize()
+        res["tsdf_dispatch_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 1e9
+        del g, b, sid, order
         del skey, vals
         final = tp.init()
         for i in range(cs.FRAMES // 8):
@@ -428,7 +485,7 @@ def main(argv) -> int:
             print(f"kernel_ab: sections are {SECTIONS}", file=sys.stderr)
             return 2
         argv = argv[:1] + argv[3:]
-    if len(argv) < 3:
+    if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -461,7 +518,8 @@ def main(argv) -> int:
               f"{json.dumps(r['tsdf_profile'])}; by kernel: B6 "
               f"{r.get('refine_lines/passes')}, B7 "
               f"{r.get('buffer_replay/passes')}, T4 "
-              f"{r.get('tsdf_reduce/passes')}", flush=True)
+              f"{r.get('tsdf_reduce/passes')}; a K=8 TSDF dispatch's peak "
+              f"{r['tsdf_dispatch_peak_gb']} GB above its start", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi()}),
           flush=True)
     return 0

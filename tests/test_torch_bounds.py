@@ -53,12 +53,12 @@ def test_tsdf_lanes_bytes(K, N, S):
 @pytest.mark.parametrize("M,n_live,n_new,n_placed", [
     (27_033_600, 1_200_000, 600_000, 1_200_000), (1000, 0, 0, 0)])
 def test_tsdf_reduce_bytes(M, n_live, n_new, n_placed):
-    # the sorted ids in; per kept run its end lane's six sums and its key
-    # probe, a new cell's key; per placed cell its six vstats words read
-    # and written; the two counters
-    want = 4 * M + 28 * n_live + 4 * n_new + 48 * n_placed + 8
+    # per lane its sorted id, order word and six values through it; per
+    # kept run its key probe, a new cell's key; per placed cell its six
+    # vstats words read and written; the two counters
+    want = 36 * M + 4 * n_live + 4 * n_new + 48 * n_placed + 8
     b = bounds.tsdf_reduce(M, n_live, n_new, n_placed)
-    assert b["bytes"] == want and b["ops"] == 6 * n_placed
+    assert b["bytes"] == want and b["ops"] == 6 * (M + n_placed)
     assert b["bound_by"] == "bytes"
 
 

@@ -1263,11 +1263,37 @@ T4_CASES = {
                          4000),
     "u_equals_m": (750, 1000, -1, 0, 1000),
     "many_tiles": (40000, 100 * T4_TILE + 3, -1, 0, 20000),
+    # runs of a few lanes straddling every ladder block's edge
+    "block_edges": (3000, 12288, -1, 0, 4000),
+    # a run of over 1024 lanes over three ladder blocks, the middle one
+    # without a run start; one of ~78 blocks (the carry's tree over 64
+    # block summaries); one over every lane of 100 tiles
+    "run_over_three_blocks": (300, 12288, -1, 2000, 1000),
+    "run_over_78_blocks": (200, 65536, -1, 40000, 4000),
+    "one_run_many_tiles": (1, 100 * T4_TILE + 3, 100 * T4_TILE + 3, 0,
+                           1000),
+    # M <= 1024: the flat ladder, under and over U, and M = 1025
+    "flat_over_u": (700, 1000, -1, 0, 300),
+    "flat_one_lane": (1, 1, 1, 0, 1),
+    "flat_edge": (600, 1024, -1, 0, 1000),
+    "blocked_edge": (600, 1025, -1, 0, 1000),
 }
 
 
+def _t4_inputs(dev, case):
+    n_cells, M, n_valid, run, U = T4_CASES[case]
+    skey, vals6 = (torch.from_numpy(a).to(dev) for a in
+                   checks.tsdf_reduce_case(n_cells, M, seed=2,
+                                           n_valid=n_valid, run_lanes=run))
+    first = checks.tsdf_reduce_case(500, 12288, seed=1)
+    grid = tsdf.make_tsdf_grid(TCFG, dev)
+    skey1, vals1 = (torch.from_numpy(a).to(dev) for a in first)
+    tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey1), vals1, 1000, TCFG)
+    return grid, skey, vals6, U
+
+
 def _t4_reduce(fn, grid, skey, vals6, U, cfg):
-    fn(grid, *tsdf.sorted_sums(skey, vals6), U, cfg)
+    fn(grid, *tsdf.sort_lanes(skey), vals6, U, cfg)
     torch.cuda.synchronize()
     return checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(grid, cfg),
                                cfg.base.capacity)
@@ -1277,14 +1303,7 @@ def _t4_reduce(fn, grid, skey, vals6, U, cfg):
 def test_tsdf_reduce_matches_plain(dev, case):
     """T4 with K2 against its plain version on the same lanes: the cell
     set, both counters exactly and ``vstats`` bit for bit by cell."""
-    n_cells, M, n_valid, run, U = T4_CASES[case]
-    first = checks.tsdf_reduce_case(500, 12288, seed=1)
-    skey, vals6 = (torch.from_numpy(a).to(dev) for a in
-                   checks.tsdf_reduce_case(n_cells, M, seed=2,
-                                           n_valid=n_valid, run_lanes=run))
-    grid = tsdf.make_tsdf_grid(TCFG, dev)
-    tsdf.tsdf_reduce(grid, *tsdf.sorted_sums(
-        *(torch.from_numpy(a).to(dev) for a in first)), 1000, TCFG)
+    grid, skey, vals6, U = _t4_inputs(dev, case)
     gk, gp = _grid_copy(grid), _grid_copy(grid)
     n0 = kernels.LAUNCHES["tsdf_reduce"]
     a = _t4_reduce(tsdf.tsdf_reduce, gk, skey, vals6, U, TCFG)
@@ -1294,8 +1313,28 @@ def test_tsdf_reduce_matches_plain(dev, case):
     assert a["vstats"].tobytes() == b["vstats"].tobytes()
     for k in ("overflow_unique", "overflow_probe"):
         assert a[k] == b[k], k
-    assert a["overflow_unique"] == max(n_cells - U, 0)
+    assert a["overflow_unique"] == max(T4_CASES[case][0] - U, 0)
     assert a["overflow_probe"] == 0
+
+
+@pytest.mark.parametrize("case", ["block_edges", "run_over_78_blocks",
+                                  "many_tiles", "flat_over_u"])
+def test_tsdf_reduce_repeat_bit_identical(dev, case):
+    """Two launches of T4 on copies of one grid leave the same cells with
+    the same ``vstats`` words by cell (K2's CAS race may seat a cell in
+    another slot): no atomics decide a sum."""
+    grid, skey, vals6, U = _t4_inputs(dev, case)
+    ga, gb = _grid_copy(grid), _grid_copy(grid)
+    sid, order = tsdf.sort_lanes(skey)
+    for g in (ga, gb):
+        tsdf.tsdf_reduce(g, sid, order, vals6, U, TCFG)
+    torch.cuda.synchronize()
+    a, b = (checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(g, TCFG),
+                                TCFG.base.capacity) for g in (ga, gb))
+    assert np.array_equal(a["cell"], b["cell"])
+    assert a["vstats"].tobytes() == b["vstats"].tobytes()
+    for k in ("overflow_unique", "overflow_probe"):
+        assert a[k] == b[k], k
 
 
 def test_tsdf_reduce_probe_overflow(dev):
@@ -1331,7 +1370,7 @@ def test_tsdf_reduce_reads_nothing(dev):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tsdf.tsdf_reduce(grid, *tsdf.sorted_sums(skey, vals6), 1000, TCFG)
+        tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey), vals6, 1000, TCFG)
         pipe.step_batch_depth(grid, *b, rays)
     finally:
         torch.cuda.set_sync_debug_mode(0)

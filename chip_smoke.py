@@ -108,9 +108,10 @@ and prints no result line):
    and pose-failure counters, that the extract holds phase 4's cells with
    the same cylinder and point counts, and that K5, K2, K3 and K4
    launched.  It prints the replay's rate, the session's native host
-   decode seconds (its ``decode`` stage) and, timed on the same records
-   outside the session, how a frame's decode divides between the
-   library's decode and the repack into the padded planar batch;
+   decode seconds (its ``decode`` stage) and how a frame's decode
+   divides between the library's decode and the repack into the padded
+   planar batch (the session's ``decode.native`` and ``decode.pack``
+   spans);
 8. the state round trip: a second bench-config session ``warm()``s
    (kernels, host library, every step on a throwaway grid, the extract),
    loads phase 4's checkpoint (``load_state``) and ``process()``es it into
@@ -1636,36 +1637,12 @@ def planar_replay(torch, cfg, frames, clouds, depth_host, device,
         f"process() {t_proc:.3f} s; {n} voxels, the depth replay's cells, "
         f"cylinder and point counts; {json.dumps(r['grid_metrics'])}")
     log(f"phase 7: stage timers {json.dumps(m['stage_timers'])}")
-    lib_s, repack_s = decode_split(cfg, clouds)
-    log(f"phase 7: decode split outside the session: library "
-        f"{1e3 * lib_s / len(clouds):.3f} ms a frame, repack into the "
-        f"padded batch {1e3 * repack_s / len(clouds):.3f} ms a frame "
-        f"({lib_s:.3f} s + {repack_s:.3f} s)")
-
-
-def decode_split(cfg, clouds, k=8):
-    """Seconds of the session's decode of ``clouds`` in K-batches, split
-    into the native library's decode (``decode_frame``) and the rest of
-    ``FusionSession._decode_planar``: the padded batch's allocation and
-    the (n,3) -> (3,n) repack into it."""
-    from hifi_fusion_tpu_torch.runtime.decode import decode_frame
-    N = cfg.max_points
-    lib_s = repack_s = 0.0
-    for b in range(0, len(clouds), k):
-        t0 = time.monotonic()
-        pts = np.zeros((k, 3, N), np.float32)
-        rgb = np.zeros((k, 3, N), np.float32)
-        repack_s += time.monotonic() - t0
-        for i, (frame, _) in enumerate(clouds[b:b + k]):
-            t0 = time.monotonic()
-            xyz, col = decode_frame(frame)
-            t1 = time.monotonic()
-            n = xyz.shape[0]
-            pts[i, :, :n] = xyz.T
-            rgb[i, :, :n] = col.T
-            lib_s += t1 - t0
-            repack_s += time.monotonic() - t1
-    return lib_s, repack_s
+    native_s, pack_s = (m["stage_timers"][k]["total_s"]
+                        for k in ("decode.native", "decode.pack"))
+    log(f"phase 7: decode split by the session's spans: library "
+        f"{1e3 * native_s / len(clouds):.3f} ms a frame, repack into the "
+        f"padded batch {1e3 * pack_s / len(clouds):.3f} ms a frame "
+        f"({native_s:.3f} s + {pack_s:.3f} s)")
 
 
 def check_variants(r, cfg) -> dict:
@@ -2126,8 +2103,8 @@ def cli_phase(torch, cfg, tcfg, frames, clouds, rays_np, dev, card) -> dict:
         f"{WIDTH}x{HEIGHT} sweeps {t_synth:.3f} s; fuse depth, fuse "
         f"--model tsdf and fuse of a capture directory {t_fuse:.3f} s; serve "
         f"{t_serve:.3f} s; rows held to direct sessions {rows}; capture "
-        f"variant rows {variants}; fuse depth {fd['frames_per_s']} "
-        f"frames/s; launches {launches}")
+        f"variant rows {variants}; fuse depth spans {fd['spans']}; "
+        f"launches {launches}")
     return launches
 
 

@@ -38,6 +38,7 @@ import torch
 from .. import kernels
 from ..config import FusionConfig
 from ..grid import GridState, occupied_slots
+from ..utils.profiling import span
 from . import geometry, hashing
 from .eigen33 import smallest_eigenpair_sym
 from .hashing import INVALID_ID
@@ -396,7 +397,8 @@ def refine_candidates(grid: GridState, config: FusionConfig):
     """Stage 1: the (U,) i32 candidate slots, ascending (a stable
     compaction on the device, at most ``max_refine_candidates``, the rest
     counted in ``overflow_refine``), and the live buffer's count: the
-    pass's one read back to the host, both counts in one copy."""
+    pass's one read back to the host, both counts in one copy (the span
+    ``refine.read``, in the timers of the session that called)."""
     dev = grid.device
     C = config.capacity
     i32 = torch.int32
@@ -405,7 +407,9 @@ def refine_candidates(grid: GridState, config: FusionConfig):
     cand_all = torch.empty((C + 1,), dtype=i32, device=dev)
     cand_all.scatter_(0, torch.where(mask, idx - 1, C),
                       torch.arange(C, dtype=i32, device=dev))
-    n_cand, bc = torch.stack([idx[-1], grid.buf_count.long()]).cpu().tolist()
+    counts = torch.stack([idx[-1], grid.buf_count.long()])
+    with span("refine.read"):
+        n_cand, bc = counts.cpu().tolist()
     U = min(n_cand, config.max_refine_candidates)
     grid.overflow_refine += n_cand - U
     return cand_all[:U], bc

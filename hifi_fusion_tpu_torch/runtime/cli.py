@@ -10,11 +10,13 @@ subcommands, flags and outputs, on one explicit ``torch.device``:
 * ``fuse`` replays a sweep file, a depth sweep or a capture directory
   (PCD / PLY frames and a TUM or CSV trajectory, ``runtime/capture.py``)
   through a ``FusionSession`` in K-batches (``batch_fill_wait=2.0``), runs
-  ``process()`` with ``--export-variants`` and prints one JSON line;
-  ``--trace DIR`` writes a ``torch.profiler`` trace of it;
+  ``process()`` with ``--export-variants`` and prints one JSON line (with
+  the session's ``stage_timers`` and ``spans``); ``--trace DIR`` writes a
+  ``torch.profiler`` trace of it, the session's spans as its ranges;
 * ``serve`` runs a session behind the line-delimited JSON TCP control
   plane (``_ControlHandler``: start, stop, reset, process, metrics, frame,
-  rays, depth_frame, shutdown); ``--warm`` runs every step once before
+  rays, depth_frame, shutdown; ``metrics`` returns ``metrics()``, its
+  ``spans`` included); ``--warm`` runs every step once before
   the first frame, ``--live-batching`` lets a backlog drain in K-batches.
 
 Config precedence: flags > JSON config file (its ``"tsdf"`` object holds
@@ -162,8 +164,8 @@ def cmd_fuse(args) -> int:
                       "metadata": result["metadata"],
                       "variants": result["variants"],
                       "frames_integrated": m["frames_integrated"],
-                      "frames_per_s": m["frames_per_s"],
-                      "stage_timers": m["stage_timers"]}))
+                      "stage_timers": m["stage_timers"],
+                      "spans": m["spans"]}))
     return 0
 
 

@@ -37,9 +37,28 @@ contract:
 * ``save_state(path)`` / ``load_state(path)`` checkpoint the grid as an
   npz in the JAX package's layout, which either package's ``load_state``
   takes;
-* ``metrics()`` adds the session's counters and ``stage_timers``
-  (``utils/profiling.StageTimers``, the JAX package's stage names) to the
-  grid's.
+* ``metrics()`` adds the session's counters, ``stage_timers`` (the JAX
+  package's stage names, ``STAGES``) and ``spans`` (every other span) to
+  the grid's; the command line's ``metrics`` control verb returns them.
+
+Each stage and span is one ``utils/profiling`` span: host seconds, count
+and mean in ``metrics()`` (``{total_s, count, mean_ms}``) and, while
+``torch.profiler`` records, a range of the same name on the trace
+(``device_step``'s range is ``step``).  The spans split the stages:
+
+* ``batch_wait``: the worker asleep waiting for a K-batch to fill;
+* ``decode.native`` / ``decode.pack`` (in ``decode``), once a frame: the
+  native decode, and the cut to ``max_points`` and copy into the padded
+  batch; ``decode.pack`` once more a batch, the zeroed batch's
+  allocation;
+* ``device_step.stage`` / ``.upload`` / ``.launch`` (in ``device_step``),
+  once a dispatch: the host's stacking of the batch, its copies to the
+  device, the pipeline's step call;
+* ``refine.read`` (in ``refine``, or in ``device_step`` when a single
+  step refines), once a pass of a single grid: the pass's one read of
+  the device, which waits for the work queued before it;
+* ``drain``: a whole ``drain()`` call, on the caller's thread;
+* ``csv_write``: the metadata CSV on its thread inside ``process()``.
 
 ``model`` picks the device-side model family: ``"fusion"`` (the
 cylinder-filtered pipeline, ``FusionPipeline``) or ``"tsdf"`` (the
@@ -93,12 +112,18 @@ from ..io import downloads, pcd, ply
 from ..models.pipeline import FusionPipeline, refine_due
 from ..models.tsdf import TsdfConfig, TsdfPipeline
 from ..parallel.sharding import ShardedFusion, shard_devices
-from ..utils.profiling import StageTimers, annotate
+from ..utils.profiling import StageTimers
 from . import native
 from .decode import CloudFrame, decode_frame
 from .sources import Source
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
+
+# the JAX session's stage names: ``metrics()["stage_timers"]``; every other
+# span is under ``metrics()["spans"]``
+STAGES = frozenset({"decode", "device_step", "device_wait", "refine",
+                    "process_refine", "process_extract", "process_export",
+                    "process_csv_wait", "process_metrics", "process_clear"})
 
 
 def batch_frames(config: FusionConfig) -> int:
@@ -169,8 +194,6 @@ class FusionSession:
         self._frames_truncated = 0   # frames cut to max_points
         self._points_truncated = 0   # points cut from them
         self.timers = StageTimers()
-        self._t_first = None
-        self._t_last = None
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="fusion-worker")
         self._worker.start()
@@ -277,9 +300,10 @@ class FusionSession:
 
                 def write_csv():
                     try:
-                        pcd.write_metadata_csv(
-                            meta_path, host["sd"], host["mean_dist"],
-                            host["sd_dist"], host["count"])
+                        with stage("csv_write"):
+                            pcd.write_metadata_csv(
+                                meta_path, host["sd"], host["mean_dist"],
+                                host["sd_dist"], host["count"])
                     except Exception as e:      # re-raised after join
                         csv_err.append(e)
 
@@ -425,14 +449,14 @@ class FusionSession:
         ``live_batching`` alone it takes a batch only when one is already
         queued."""
         kb = self._kb
-        if kb > 1 and self._batch_fill_wait > 0:
-            deadline = time.monotonic() + self._batch_fill_wait
-            while not self._shutdown and time.monotonic() < deadline:
-                with self._qlock:
-                    if (not self._queue or len(self._queue) >= kb
-                            or self._frames_integrated % kb != 0):
+        if (kb > 1 and self._batch_fill_wait > 0
+                and not self._batch_ready(kb)):
+            with self.timers.stage("batch_wait"):
+                deadline = time.monotonic() + self._batch_fill_wait
+                while not self._shutdown and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                    if self._batch_ready(kb):
                         break
-                time.sleep(0.001)
         with self._qlock:
             if not self._queue:
                 return []
@@ -443,6 +467,13 @@ class FusionSession:
                              list(self._queue)[:kb]}) == 1):
                 return [self._queue.popleft() for _ in range(kb)]
             return [self._queue.popleft()]
+
+    def _batch_ready(self, kb: int) -> bool:
+        """Nothing to wait for: the queue is empty, holds a K-batch, or
+        the next frame is not K-aligned."""
+        with self._qlock:
+            return (not self._queue or len(self._queue) >= kb
+                    or self._frames_integrated % kb != 0)
 
     def _needs_final_refine(self) -> bool:
         """False iff the cadence already refined at exactly the current
@@ -468,20 +499,26 @@ class FusionSession:
     def _decode_planar(self, items):
         """Host decode of K cloud frames into the planar wire: (K,3,N) f32
         points and rgb padded to N = ``max_points`` and (K,) i32 count
-        prefixes (the ``decode`` stage: the library's decode and the
-        repack into the padded batch)."""
+        prefixes (the ``decode`` stage: a frame's library decode,
+        ``decode.native``, and its repack into the padded batch,
+        ``decode.pack``; the zeroed batch is allocated first, in a
+        ``decode.pack`` of its own)."""
         N = self.config.max_points
         k = len(items)
-        pts = np.zeros((k, 3, N), np.float32)
-        rgb = np.zeros((k, 3, N), np.float32)
-        counts = np.zeros((k,), np.int32)
+        stage = self.timers.stage
+        with stage("decode.pack"):
+            pts = np.zeros((k, 3, N), np.float32)
+            rgb = np.zeros((k, 3, N), np.float32)
+            counts = np.zeros((k,), np.int32)
         for i, (_, frame, _) in enumerate(items):
-            xyz, col = decode_frame(
-                frame, blue_shift_bug=self.config.bug_compat_blue_shift)
-            n = self._truncate(xyz.shape[0], 1, "frame")
-            pts[i, :, :n] = xyz[:n].T
-            rgb[i, :, :n] = col[:n].T
-            counts[i] = n
+            with stage("decode.native"):
+                xyz, col = decode_frame(
+                    frame, blue_shift_bug=self.config.bug_compat_blue_shift)
+            with stage("decode.pack"):
+                n = self._truncate(xyz.shape[0], 1, "frame")
+                pts[i, :, :n] = xyz[:n].T
+                rgb[i, :, :n] = col[:n].T
+                counts[i] = n
         return pts, rgb, counts
 
     def _await_device(self) -> None:
@@ -496,52 +533,50 @@ class FusionSession:
         cfg = self.config
         k = len(items)
         put = self.pipeline.put
+        stage = self.timers.stage
         cloud = items[0][0] == "cloud"
         if cloud:
-            with self.timers.stage("decode"), annotate("decode"):
+            with stage("decode"):
                 host = self._decode_planar(items)
         else:
             n = self._truncate(items[0][1].shape[-1], k, "depth frame")
         self._await_device()
-        with self.timers.stage("device_step"), annotate("step"):
-            poses = put(np.stack([f[-1] for f in items]))
-            if cloud:
-                pts, rgb, counts = map(put, host)
-                with self._glock:
-                    if k == 1:
-                        self._grid = self.pipeline.step(
-                            self._grid, pts[0], rgb[0], counts[0],
-                            poses[0])
-                    else:
-                        self._grid = self.pipeline.step_batch(
-                            self._grid, pts, rgb, counts, poses)
-            else:
-                depth = put(np.stack([f[1][:n] for f in items]))
-                rgb = put(np.stack([f[2][:n] for f in items]))
-                counts = put(np.full((k,), n, np.int32))
-                rays = self._rays[:, :n].contiguous()
-                with self._glock:
+        with stage("device_step"):
+            # the host's work first, then every copy, then the launch
+            with stage("device_step.stage"):
+                poses = np.stack([f[-1] for f in items])
+                if not cloud:
+                    host = (np.stack([f[1][:n] for f in items]),
+                            np.stack([f[2][:n] for f in items]),
+                            np.full((k,), n, np.int32))
+            with stage("device_step.upload"):
+                poses = put(poses)
+                data, rgb, counts = map(put, host)
+            with stage("device_step.launch"), self._glock:
+                if cloud and k == 1:
+                    self._grid = self.pipeline.step(
+                        self._grid, data[0], rgb[0], counts[0], poses[0])
+                elif cloud:
+                    self._grid = self.pipeline.step_batch(
+                        self._grid, data, rgb, counts, poses)
+                else:
+                    rays = self._rays[:, :n].contiguous()
                     if k == 1:
                         self._grid = self.pipeline.step_depth(
-                            self._grid, depth[0], rgb[0], counts[0],
+                            self._grid, data[0], rgb[0], counts[0],
                             poses[0], rays)
                     else:
                         self._grid = self.pipeline.step_batch_depth(
-                            self._grid, depth, rgb, counts, poses, rays)
+                            self._grid, data, rgb, counts, poses, rays)
         if k > 1 and cfg.refine_every > 0 and refine_due(
                 self._frames_integrated + k, k, cfg):
-            with self.timers.stage("refine"), annotate("refine"):
-                with self._glock:
-                    self._grid = self.pipeline.refine(self._grid)
+            with stage("refine"), self._glock:
+                self._grid = self.pipeline.refine(self._grid)
         self._last_step = []
         for dev in self._cuda:
             with torch.cuda.device(dev):
                 self._last_step.append(torch.cuda.Event())
                 self._last_step[-1].record()
-        now = time.monotonic()
-        if self._t_first is None:
-            self._t_first = now
-        self._t_last = now
         self._frames_integrated += k
 
     def _run(self) -> None:
@@ -563,25 +598,23 @@ class FusionSession:
 
     def drain(self, timeout: float = 300.0) -> bool:
         """Block until the queue is empty, the worker idle and the device
-        done with every dispatched step."""
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
-            with self._qlock:
-                empty = not self._queue
-            if empty and not self._busy:
-                for dev in self._cuda:
-                    torch.cuda.synchronize(dev)
-                return True
-            time.sleep(0.002)
-        return False
+        done with every dispatched step (the span ``drain``)."""
+        with self.timers.stage("drain"):
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                with self._qlock:
+                    empty = not self._queue
+                if empty and not self._busy:
+                    for dev in self._cuda:
+                        torch.cuda.synchronize(dev)
+                    return True
+                time.sleep(0.002)
+            return False
 
     # -- observability ------------------------------------------------------
     def metrics(self) -> Dict:
         with self._glock:
             m = self.pipeline.grid_metrics(self._grid)
-        dt = (self._t_last - self._t_first
-              if self._t_first is not None and self._t_last is not None
-              else 0.0)
         timers = self.timers.report()
         m.update({
             "frames_received": self._frames_in,
@@ -592,9 +625,9 @@ class FusionSession:
             "frames_truncated": self._frames_truncated,
             "points_truncated": self._points_truncated,
             "decode_s": timers.get("decode", {}).get("total_s", 0.0),
-            "frames_per_s": ((self._frames_integrated - 1) / dt
-                             if dt > 0 else None),
-            "stage_timers": timers,
+            "stage_timers": {k: v for k, v in timers.items()
+                             if k in STAGES},
+            "spans": {k: v for k, v in timers.items() if k not in STAGES},
         })
         return m
 

@@ -18,8 +18,11 @@ and prints no result line):
    its main path gives it, timed on the card (``device_ms``) in the order
    plain, kernel, kernel, plain: K1-K4 at the fusion bench config, K5 on
    the planar wires of a K=8 batch of that sweep (f32 points with f32
-   colour and count prefixes, as the session sends them; f32 points with
-   packed colour and a lane mask; the q16 wire), T1-T3 at the TSDF config
+   colour and count prefixes, as the host decode packs them; f32 points
+   with packed colour and a lane mask; the q16 wire) and on its record
+   wire (the batch's PointCloud2 records as a fusion session uploads
+   them, bit-exact also against the f32 wire of the host decode), T1-T3
+   at the TSDF config
    5, T3 at two shapes (the grid after two batches and the final grid of
    the 96-frame replay), and K2 at each of its three call shapes (the
    fusion integrate, the refine's line cells and the TSDF batch, on the
@@ -106,12 +109,11 @@ and prints no result line):
    8-bit colour), replayed through ``FusionSession.push_frame`` at the
    same K and cadence, then ``process()``; checks overflow, truncation
    and pose-failure counters, that the extract holds phase 4's cells with
-   the same cylinder and point counts, and that K5, K2, K3 and K4
-   launched.  It prints the replay's rate, the session's native host
-   decode seconds (its ``decode`` stage) and how a frame's decode
-   divides between the library's decode and the repack into the padded
-   planar batch (the session's ``decode.native`` and ``decode.pack``
-   spans);
+   the same cylinder and point counts, that every frame took K5's
+   record wire (decoded on the card) and that it, K2, K3 and K4
+   launched.  It prints the replay's rate and the host's layout check
+   and upload a frame (the session's ``decode`` stage and
+   ``device_step.upload`` span);
 8. the state round trip: a second bench-config session ``warm()``s
    (kernels, host library, every step on a throwaway grid, the extract),
    loads phase 4's checkpoint (``load_state``) and ``process()``es it into
@@ -230,6 +232,8 @@ KERNELS = {
                         "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
     "tsdf_lanes_planar": ("hifi_fusion_tpu_torch/csrc/tsdf_lanes.cu",
                           "hifi_fusion_tpu/ops/pallas_kernels.py:67"),
+    "record_frontend": ("hifi_fusion_tpu_torch/csrc/planar_frontend.cu",
+                        "hifi_fusion_tpu/runtime/decode.py"),
     "neighbor_count": ("hifi_fusion_tpu_torch/csrc/neighbor_count.cu",
                        "hifi_fusion_tpu/ops/queries.py:41"),
     "route_pack": ("hifi_fusion_tpu_torch/csrc/route_pack.cu",
@@ -249,7 +253,8 @@ FUSION_STEPS = ("hash_insert", "integrate_lanes", "dep_stream", "normal_fit",
                 "refine_lines", "buffer_replay")
 # the kernels each main path must launch
 FUSION_PATH = ("depth_frontend",) + FUSION_STEPS
-PLANAR_PATH = ("planar_frontend",) + FUSION_STEPS
+# a fusion session's clouds take K5's record wire
+PLANAR_PATH = ("record_frontend",) + FUSION_STEPS
 # (T4 runs P2's segment ladder itself, so T1 launches in phase 3's own
 # check only)
 TSDF_PATH = ("tsdf_lanes", "tsdf_reduce", "hash_insert", "tsdf_surface")
@@ -258,7 +263,7 @@ TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "tsdf_reduce", "hash_insert",
 QUERY_PATH = ("neighbor_count",)
 # the routed sharded path: B12 routes, K5 takes the routed world points
 ROUTED_PATH = ("route_pack", "planar_frontend") + FUSION_STEPS
-CLI_PATH = ("depth_frontend", "planar_frontend", "tsdf_lanes_planar",
+CLI_PATH = ("depth_frontend", "record_frontend", "tsdf_lanes_planar",
             "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
@@ -1362,6 +1367,58 @@ def check_planar_frontend(torch, cfg, frames, dev) -> dict:
     return {**wires["f32-f32-count"], "wires": wires}
 
 
+def record_batch(torch, clouds, N, dev):
+    """The record wire of K ``(CloudFrame, pose)`` records, as
+    ``FusionSession`` uploads it: a (K, N * point_step) u8 batch holding
+    each frame's records from the start of its row, the (K,6) i32 frame
+    table and the (K,4,4) poses, on ``dev``."""
+    from hifi_fusion_tpu_torch.runtime.decode import record_fields
+    rows = [record_fields(f) for f, _ in clouds]
+    rec = torch.zeros((len(clouds), N * max(r[1] for r in rows)),
+                      dtype=torch.uint8)
+    table = np.asarray([[min(n, N), *rest] for n, *rest in rows], np.int32)
+    for k, (f, _) in enumerate(clouds):
+        nb = int(table[k, 0] * table[k, 1])
+        rec[k, :nb] = torch.from_numpy(np.frombuffer(f.data, np.uint8,
+                                                     count=nb).copy())
+    poses = np.stack([p for _, p in clouds]).astype(np.float32)
+    return rec.to(dev), torch.from_numpy(table).to(dev), \
+        torch.from_numpy(poses).to(dev)
+
+
+def check_record_frontend(torch, cfg, clouds, dev) -> dict:
+    """Phase 3, K5's record wire on the first K=8 frames' records: bit-
+    exact against its plain version and against K5's f32 wire on the same
+    frames decoded on the host (``record_wire``), timed with the bound of
+    a lane's 16 record bytes as 12 of points and 4 of packed colour."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.ops import integrate
+    N = cfg.max_points
+    rec, table, poses = record_batch(torch, clouds[:8], N, dev)
+    got = integrate.record_frontend(rec, table, poses, cfg)
+    plain = integrate.record_frontend_plain(rec, table, poses, cfg)
+    host = integrate.planar_frontend(*record_wire(torch, clouds[:8], N, dev),
+                                     cfg)
+    err = max_err(zip(got, plain))
+    for name, want in (("plain", plain), ("host decode", host)):
+        if not all(bits_equal(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"record_frontend differs from the "
+                                 f"{name}: {max_err(zip(got, want))}")
+    n_valid = int((got[1] != integrate.INVALID_ID).sum())
+    del got, plain, host
+    ms, pms = time_pair(
+        torch, lambda: integrate.record_frontend(rec, table, poses, cfg),
+        lambda: integrate.record_frontend_plain(rec, table, poses, cfg),
+        tuple)
+    out = {**timed(err, ms, pms, bounds.planar_frontend(8, N, 12, 4, 0)),
+           "n_valid": n_valid}
+    log(f"phase 3: record_frontend: bit-exact against the plain version "
+        f"and the host decode's f32 wire, {n_valid} valid lanes of 8 x {N}, "
+        f"{ms:.4f} ms (bound {out['bound_ms']:.4f}, share "
+        f"{out['share']:.3f})")
+    return out
+
+
 def segscan_yardstick(torch, scatter, tsdf, sid, svals, starts) -> float:
     """ms of ``torch.segment_reduce`` summing the valid sorted lanes of a
     batch into one row per segment, the totals the TSDF path reads at the
@@ -1637,12 +1694,15 @@ def planar_replay(torch, cfg, frames, clouds, depth_host, device,
         f"process() {t_proc:.3f} s; {n} voxels, the depth replay's cells, "
         f"cylinder and point counts; {json.dumps(r['grid_metrics'])}")
     log(f"phase 7: stage timers {json.dumps(m['stage_timers'])}")
-    native_s, pack_s = (m["stage_timers"][k]["total_s"]
-                        for k in ("decode.native", "decode.pack"))
-    log(f"phase 7: decode split by the session's spans: library "
-        f"{1e3 * native_s / len(clouds):.3f} ms a frame, repack into the "
-        f"padded batch {1e3 * pack_s / len(clouds):.3f} ms a frame "
-        f"({native_s:.3f} s + {pack_s:.3f} s)")
+    if m["cloud_frames_card_decoded"] != len(clouds):
+        raise AssertionError(f"planar replay: {m['cloud_frames_card_decoded']}"
+                             f" of {len(clouds)} frames decoded on the card")
+    decode_s, upload_s = (m["stage_timers"][k]["total_s"]
+                          for k in ("decode", "device_step.upload"))
+    log(f"phase 7: every frame decoded on the card (K5's record wire); the "
+        f"host's layout check {1e3 * decode_s / len(clouds):.3f} ms a "
+        f"frame, the records' upload {1e3 * upload_s / len(clouds):.3f} ms "
+        f"a frame")
 
 
 def check_variants(r, cfg) -> dict:
@@ -2605,6 +2665,7 @@ def main() -> int:
     tcfg = tsdf_config(FusionConfig, TsdfConfig)
     kres = check_kernels(torch, cfg, frames, rays, dev)
     kres["planar_frontend"] = check_planar_frontend(torch, cfg, frames, dev)
+    kres["record_frontend"] = check_record_frontend(torch, cfg, clouds, dev)
     kres.update(check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev))
     torch.cuda.empty_cache()
     kres["neighbor_count"], *b11 = check_neighbor_count(torch, cfg, frames,

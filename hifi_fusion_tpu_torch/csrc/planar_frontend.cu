@@ -16,7 +16,9 @@
 // world wire (PTS_WORLD, f32 colour) takes the world points a router
 // sent to this shard (kernel B12, route_pack.cu): no transform, camera-z
 // clip or bbox test, only the local coord window, as the JAX package's
-// ``pre_transformed`` frontend (integrate.py:59-95, :259-270).
+// ``pre_transformed`` frontend (integrate.py:59-95, :259-270).  The
+// record wire (record_frontend_kernel, at the end) reads PointCloud2
+// records as they arrived and decodes them in the lane.
 //
 // Bound on the card: memory.  An f32 lane reads 12 B of points, 12 B of
 // f32 rgb and 1 B of mask, and writes 28 B (world xyz, id, rgb); a K=8
@@ -141,5 +143,109 @@ extern "C" int launch_planar_frontend(
         default: return (int)cudaErrorInvalidValue;
     }
 #undef HIFI_WIRES
+    return (int)cudaGetLastError();
+}
+
+// The record wire: K5 on PointCloud2 records as they arrived, so the host
+// neither decodes nor repacks a cloud (the session's fusion path).  Row k
+// of ``rec`` (``row_bytes`` bytes) holds frame k's records; row k of the
+// (K,6) i32 ``table`` its count, point_step and the byte offsets of x, y,
+// z and the packed 0x00RRGGBB word (-1: no colour).  Per lane: the four
+// 32-bit fields read from the record (one 16-byte load when the fields
+// share an aligned 16-byte window, the cell's 16-byte layout; word loads
+// when everything is 4-aligned; else byte by byte), the colour expanded
+// as RGB_U32 with blue shifted by ``blue_shift`` (1: the reference's bug),
+// then the f32 path above with the count prefix.  Lanes at or past the
+// count, or whose fields would lie outside the row, load nothing and take
+// zeros, as the planar wire's padding: every output word equals that of
+// the host decode followed by the RGB_F32 wire (ops/integrate.py
+// record_frontend_plain).  The caller validates the table
+// (runtime/decode.record_fields).  Bound: memory, a lane's count of
+// record bytes in (16 in the cell) and 28 B out.
+
+// one little-endian 32-bit field at byte ``off`` of the record ``r``
+__device__ __forceinline__ unsigned record_word(const unsigned char* r,
+                                                int off, bool words) {
+    if (words) return __ldg((const unsigned*)(r + off));
+    return (unsigned)__ldg(r + off) | ((unsigned)__ldg(r + off + 1) << 8) |
+           ((unsigned)__ldg(r + off + 2) << 16) |
+           ((unsigned)__ldg(r + off + 3) << 24);
+}
+
+__device__ __forceinline__ unsigned pick_word(const uint4& q, int i) {
+    return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+__global__ void record_frontend_kernel(
+    const unsigned char* __restrict__ rec, long row_bytes,
+    const int* __restrict__ table, int blue_shift,
+    const float* __restrict__ poses, int K, int N, Geo g, float zmin,
+    float zmax, float* __restrict__ world, int* __restrict__ ids,
+    float* __restrict__ rgb_out) {
+    const long M = (long)K * N;
+    long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= M) return;
+    const int k = (int)(lane / N);
+    const int n = (int)(lane - (long)k * N);
+    const int* t = table + 6L * k;
+    const int count = __ldg(t), step = __ldg(t + 1);
+    const int off[4] = {__ldg(t + 2), __ldg(t + 3), __ldg(t + 4),
+                        __ldg(t + 5)};
+    const bool has_rgb = off[3] >= 0;
+    const int o3 = has_rgb ? off[3] : off[0];
+    const int lo = min(min(off[0], off[1]), min(off[2], o3));
+    const int hi = max(max(off[0], off[1]), max(off[2], o3));
+    // whatever the table holds, no read leaves the frame's row
+    const bool live = n < count && step > 0 && lo >= 0 &&
+                      (long)n * step + hi + 4 <= row_bytes;
+
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    unsigned v = 0u;
+    if (live) {
+        const unsigned char* frame = rec + (long)k * row_bytes;
+        const unsigned char* r = frame + (long)n * step;
+        const bool words =
+            (((size_t)frame | (size_t)step | (size_t)off[0] |
+              (size_t)off[1] | (size_t)off[2] | (size_t)o3) & 3) == 0;
+        unsigned w[4];
+        if (words && (((size_t)frame | (size_t)step) & 15) == 0 &&
+            (lo & ~15) == (hi & ~15)) {
+            const int base = lo & ~15;
+            const uint4 q = __ldg((const uint4*)(r + base));
+            for (int a = 0; a < 4; ++a)
+                w[a] = pick_word(q, ((a == 3 ? o3 : off[a]) - base) >> 2);
+        } else {
+            for (int a = 0; a < 4; ++a)
+                w[a] = record_word(r, a == 3 ? o3 : off[a], words);
+        }
+        for (int a = 0; a < 3; ++a) p[a] = __uint_as_float(w[a]);
+        if (has_rgb) v = w[3];
+    }
+    bool valid = live && p[2] > zmin && p[2] < zmax;
+    float wp[3];
+    pose_transform(poses + 16L * k, p, wp);
+    int c[3];
+    valid = cell_coords_valid(g, wp, c, true) && valid;
+    ids[lane] = valid ? (c[0] * g.dims[1] + c[1]) * g.dims[2] + c[2]
+                      : INT_MAX;
+    world[lane] = wp[0];
+    world[M + lane] = wp[1];
+    world[2 * M + lane] = wp[2];
+    rgb_out[lane] = (float)((v >> 16) & 0xFFu);
+    rgb_out[M + lane] = (float)((v >> 8) & 0xFFu);
+    rgb_out[2 * M + lane] = (float)((v >> blue_shift) & 0xFFu);
+}
+
+extern "C" int launch_record_frontend(
+    const void* rec, long row_bytes, const void* table, int blue_shift,
+    const void* poses, int K, int N, const float* geo_f, const int* geo_i,
+    float zmin, float zmax, void* world, void* ids, void* rgb_out,
+    void* stream) {
+    const int threads = 256;
+    record_frontend_kernel<<<grid_blocks((long)K * N, threads), threads, 0,
+                             (cudaStream_t)stream>>>(
+        (const unsigned char*)rec, row_bytes, (const int*)table, blue_shift,
+        (const float*)poses, K, N, make_geo(geo_f, geo_i), zmin, zmax,
+        (float*)world, (int*)ids, (float*)rgb_out);
     return (int)cudaGetLastError();
 }

@@ -45,7 +45,8 @@ LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "normal_fit": 0, "segscan": 0, "tsdf_lanes": 0,
             "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
             "neighbor_count": 0, "route_pack": 0, "integrate_lanes": 0,
-            "refine_lines": 0, "buffer_replay": 0, "tsdf_reduce": 0}
+            "refine_lines": 0, "buffer_replay": 0, "tsdf_reduce": 0,
+            "record_frontend": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -78,6 +79,10 @@ _SIGNATURES = {
     # K, N, geo_f, geo_i, zmin, zmax, world, ids, rgb_out, stream
     "launch_planar_frontend": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P,
                                _P, _F, _F, _P, _P, _P, _P],
+    # rec, row_bytes, table, blue_shift, poses, K, N, geo_f, geo_i, zmin,
+    # zmax, world, ids, rgb_out, stream
+    "launch_record_frontend": [_P, _L, _P, _I, _P, _I, _I, _P, _P, _F, _F,
+                               _P, _P, _P, _P],
     # points, rgb, mask, mask_is_bool, poses, K, N, S, step, half, geo_f,
     # geo_i, zmin, zmax, skey, vals, stream
     "launch_tsdf_lanes_planar": [_P, _P, _P, _I, _P, _I, _I, _I, _F, _F,

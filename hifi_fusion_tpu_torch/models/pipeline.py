@@ -1,8 +1,9 @@
 """FusionPipeline: the port's device-side model.
 
 The counterpart of ``hifi_fusion_tpu/models/pipeline.py`` (:40-285) for the
-depth wire and the planar wires.  A ``FusionPipeline`` holds the config
-and an explicit ``torch.device``; its grid lives on that device.  A CUDA
+depth wire, the planar wires and PointCloud2 records as they arrived.  A
+``FusionPipeline`` holds the config and an explicit ``torch.device``; its
+grid lives on that device.  A CUDA
 device runs the kernels on the path (K1 or K5, K2-K4), a CPU device their
 plain versions; there is no fallback from one to the other.  A shard of
 a slab-sharded grid (parallel/sharding.py) is a pipeline with the shard's
@@ -21,7 +22,8 @@ from ..grid import GridState, grid_metrics, make_grid
 from ..ops.extract import (EXTRACT_FIELDS, ExtractResult, cached_fetch,
                            extract, to_host)
 from ..ops.integrate import (integrate, integrate_batch,
-                             integrate_batch_depth, integrate_depth)
+                             integrate_batch_depth, integrate_batch_records,
+                             integrate_depth)
 from ..ops.refine import refine_pass
 
 
@@ -49,6 +51,18 @@ def refine_due(frames, k: int, config: FusionConfig):
     # floor division alone would extend the mark lattice backward below
     # refine_first (f0 - e, f0 - 2e, ...); the first mark is f0 itself
     return (frames >= f0) & hit
+
+
+def _records(points, rgb, quant, pre_transformed, extra_dropped) -> bool:
+    """Whether a step's ``points`` are PointCloud2 records (u8), which
+    carry their colour and take no quantization or routing."""
+    if points.dtype != torch.uint8:
+        return False
+    if rgb is not None or quant is not None or pre_transformed \
+            or extra_dropped:
+        raise ValueError("records carry their colour and take no quant, "
+                         "pre_transformed or extra_dropped")
+    return True
 
 
 class FusionPipeline:
@@ -90,18 +104,31 @@ class FusionPipeline:
     def step(self, grid: GridState, points, rgb, mask, pose,
              quant=None, pre_transformed: bool = False,
              extra_dropped: int = 0) -> GridState:
-        """One planar frame (``ops/integrate.integrate``'s wires), then a
-        refine when a mark falls on it (JAX ``fusion_step``)."""
-        grid = integrate(grid, points, rgb, mask, pose, self.config, quant,
-                         self.offset, pre_transformed, extra_dropped)
+        """One planar frame (``ops/integrate.integrate``'s wires) or one
+        frame of PointCloud2 records (``step_batch``), then a refine when
+        a mark falls on it (JAX ``fusion_step``)."""
+        if _records(points, rgb, quant, pre_transformed, extra_dropped):
+            grid = integrate_batch_records(grid, points[None], mask[None],
+                                           pose[None], self.config,
+                                           self.offset)
+        else:
+            grid = integrate(grid, points, rgb, mask, pose, self.config,
+                             quant, self.offset, pre_transformed,
+                             extra_dropped)
         return self._refine_if_due(grid)
 
     def step_batch(self, grid: GridState, points, rgb, mask, poses,
                    quant=None, pre_transformed: bool = False,
                    extra_dropped: int = 0) -> GridState:
-        """K planar frames; no refine (JAX ``integrate_batch``: the caller
-        fires ``refine`` when ``refine_due`` says a mark fell in the
-        batch)."""
+        """K planar frames, or K frames of PointCloud2 records as they
+        arrived: (K,R) u8 records in ``points``, no ``rgb`` (the records
+        carry it) and the (K,6) i32 frame table in ``mask``, in place of
+        the count prefix (``ops/integrate.record_frontend``).  No refine
+        (JAX ``integrate_batch``: the caller fires ``refine`` when
+        ``refine_due`` says a mark fell in the batch)."""
+        if _records(points, rgb, quant, pre_transformed, extra_dropped):
+            return integrate_batch_records(grid, points, mask, poses,
+                                           self.config, self.offset)
         return integrate_batch(grid, points, rgb, mask, poses, self.config,
                                quant, self.offset, pre_transformed,
                                extra_dropped)

@@ -8,8 +8,10 @@ u16-quantized (K,3,N) camera points, f32, packed u32 or rgb565 colour, and
 a (K,N) lane mask or a (K,) count prefix.  One batch:
 
 1. a frontend: kernel K1 (``depth_frontend``) for the depth wire, kernel
-   K5 (``planar_frontend``) for the planar wires; each unprojects or
-   dequantizes, clips, transforms, takes the cell id and expands colour;
+   K5 (``planar_frontend``) for the planar wires and its record wire
+   (``record_frontend``) for PointCloud2 records as they arrived; each
+   unprojects, dequantizes or decodes, clips, transforms, takes the cell
+   id and expands colour;
 2. one stable sort by cell id, invalid lanes last; lanes stay frame-major
    within a cell, so a cell's first lane belongs to its earliest frame;
 3. the unique cells, found or inserted with kernel K2
@@ -247,6 +249,86 @@ def planar_frontend(points: torch.Tensor, rgb: torch.Tensor,
         float(config.z_clip[1]), world.data_ptr(), ids.data_ptr(),
         rgb_out.data_ptr(), kernels.stream()), "planar_frontend")
     kernels.LAUNCHES["planar_frontend"] += 1
+    return world, ids, rgb_out
+
+
+def record_frontend_plain(rec, table, poses, config, offset=None):
+    """The record wire's decode in PyTorch (each field's four bytes
+    gathered and viewed as a word, the colour unpacked with the config's
+    blue shift; lanes past the count, or whose fields would lie outside
+    the row, zero), then the f32 planar wire with the count prefix."""
+    K, R = rec.shape
+    N = config.max_points
+    dev = rec.device
+    t = table.to(torch.int64)
+    count, step, offs = t[:, 0], t[:, 1], t[:, 2:]
+    # a colourless frame's fourth word is read at x
+    offs = torch.where(offs >= 0, offs, offs[:, :1])
+    lo, hi = offs.amin(dim=1), offs.amax(dim=1)
+    n = torch.arange(N, device=dev)
+    live = ((n[None] < count[:, None]) & (step > 0)[:, None]
+            & (lo >= 0)[:, None]
+            & (n[None] * step[:, None] + (hi + 4)[:, None] <= R))
+    start = torch.arange(K, device=dev)[:, None] * R + n[None] * step[:, None]
+    at = torch.where(live[..., None], start[:, :, None] + offs[:, None, :],
+                     0)                                          # (K,N,4)
+    byte = rec.reshape(-1)[at[..., None] + torch.arange(4, device=dev)]
+    words = torch.where(live[..., None], byte.view(torch.int32)[..., 0], 0)
+    pts = words[..., :3].view(torch.float32).permute(0, 2, 1).contiguous()
+    v = torch.where((t[:, 5] >= 0)[:, None], words[..., 3], 0)
+    blue = 1 if config.bug_compat_blue_shift else 0
+    rgb = torch.stack([(v >> 16) & 0xFF, (v >> 8) & 0xFF,
+                       (v >> blue) & 0xFF], dim=1).to(torch.float32)
+    return planar_frontend_plain(pts, rgb, table[:, 0].contiguous(), poses,
+                                 None, config, offset)
+
+
+def record_frontend(rec: torch.Tensor, table: torch.Tensor,
+                    poses: torch.Tensor, config: FusionConfig, offset=None):
+    """K frames of PointCloud2 records as they arrived -> the outputs of
+    ``planar_frontend`` on N = ``max_points`` lanes a frame.
+
+    * ``rec``: (K,R) u8, row k holding frame k's records from byte 0
+      (bytes past its count's records are never read);
+    * ``table``: (K,6) i32, a row a frame: count, point_step and the
+      byte offsets of x, y, z and the packed 0x00RRGGBB colour (-1:
+      none), as ``runtime/decode.record_fields`` checks them; a lane
+      whose fields would lie outside its row reads nothing, whatever the
+      table holds;
+    * ``poses``: (K,4,4) f32.
+
+    Bit-equal to the host decode (``runtime/decode.decode_frame``) into
+    the f32 planar wire with a count prefix.  Kernel K5's record wire on
+    CUDA tensors, ``record_frontend_plain`` on CPU tensors."""
+    if rec.dim() != 2:
+        raise ValueError(f"rec: expected (K,R), got {tuple(rec.shape)}")
+    K, R = rec.shape
+    N = config.max_points
+    dev = rec.device
+    kernels.check_inputs(
+        dev,
+        ("rec", rec, torch.uint8, (K, R)),
+        ("table", table, torch.int32, (K, 6)),
+        ("poses", poses, torch.float32, (K, 4, 4)))
+    if dev.type == "cpu":
+        return record_frontend_plain(rec, table, poses, config, offset)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    M = K * N
+    world = torch.empty((3, M), dtype=torch.float32, device=dev)
+    ids = torch.empty((M,), dtype=torch.int32, device=dev)
+    rgb_out = torch.empty((3, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return world, ids, rgb_out
+    gf, gi = kernels.geometry_args(config, offset)
+    lib = kernels.library()
+    kernels.check(lib.launch_record_frontend(
+        rec.data_ptr(), R, table.data_ptr(),
+        int(config.bug_compat_blue_shift), poses.data_ptr(), K, N,
+        kernels.ptr(gf), kernels.ptr(gi), float(config.z_clip[0]),
+        float(config.z_clip[1]), world.data_ptr(), ids.data_ptr(),
+        rgb_out.data_ptr(), kernels.stream()), "record_frontend")
+    kernels.LAUNCHES["record_frontend"] += 1
     return world, ids, rgb_out
 
 
@@ -525,6 +607,16 @@ def integrate_batch(grid: GridState, points: torch.Tensor,
                                        quant, offset, pre_transformed)
     return integrate_lanes(grid, world, ids, rgb3, poses, K, N, config,
                            offset, extra_dropped)
+
+
+def integrate_batch_records(grid: GridState, rec: torch.Tensor,
+                            table: torch.Tensor, poses: torch.Tensor,
+                            config: FusionConfig, offset=None) -> GridState:
+    """Integrate K frames of PointCloud2 records (the wire of
+    ``record_frontend``) into ``grid`` in place; returns ``grid``."""
+    world, ids, rgb3 = record_frontend(rec, table, poses, config, offset)
+    return integrate_lanes(grid, world, ids, rgb3, poses, rec.shape[0],
+                           config.max_points, config, offset)
 
 
 def integrate(grid: GridState, points: torch.Tensor, rgb: torch.Tensor,

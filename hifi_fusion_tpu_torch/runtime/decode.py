@@ -3,11 +3,15 @@
 A copy of ``hifi_fusion_tpu/runtime/decode.py`` (the port cannot import
 the JAX package).  A RealSense-style stream delivers interleaved per-point
 records (x, y, z f32 and a packed rgb float) with a stride; organized
-clouds (height > 1) decode every row.  ``decode_frame`` runs the native
-host runtime's C++/OpenMP decode (``runtime/native``, built with ``g++`` at
-first use; a failed build raises), as the JAX package's does when its
-library is built.  ``_decode_numpy``, a strided NumPy copy, is the format
-oracle the tests hold the library to; the session never takes it.
+clouds (height > 1) decode every row.  ``record_fields`` reads and checks
+a frame's record layout: all a fusion session does on the host before
+kernel K5 decodes the records on the card (``ops/integrate
+.record_frontend``).  ``decode_frame`` runs the native host runtime's
+C++/OpenMP decode (``runtime/native``, built with ``g++`` at first use; a
+failed build raises), as the JAX package's does when its library is
+built.  ``_decode_numpy``, a strided NumPy copy, is the format oracle the
+tests hold the library and the record wire to; the session never takes
+it.
 
 The reference's blue-channel bug (packed blue extracted with a shift of 1
 instead of 0, FUSION.cpp:174) is fixed by default and reproduced behind
@@ -77,18 +81,34 @@ def make_cloud_frame(xyz: np.ndarray, rgb: Optional[np.ndarray] = None,
                       fields=fields, frame_id=frame_id, stamp=stamp)
 
 
-def decode_frame(frame: CloudFrame, blue_shift_bug: bool = False
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """CloudFrame -> ((N,3) f32 xyz, (N,3) f32 rgb in [0,255])."""
+def record_fields(frame: CloudFrame) -> Tuple[int, int, int, int, int, int]:
+    """The frame's record layout, ``(n_points, point_step, off_x, off_y,
+    off_z, off_rgb)`` with ``off_rgb`` -1 when the records carry no colour,
+    checked as the decode checks it: raises ValueError when x, y or z is
+    missing, the buffer holds fewer than n_points records, or a field's
+    four bytes lie outside the record."""
     off_x = frame.field_offset("x")
     off_y = frame.field_offset("y")
     off_z = frame.field_offset("z")
     off_rgb = frame.field_offset("rgb")
     if off_x is None or off_y is None or off_z is None:
         raise ValueError("cloud frame lacks x/y/z fields")
-    return native.decode_xyzrgb(
-        frame.data, frame.n_points, frame.point_step, off_x, off_y, off_z,
-        -1 if off_rgb is None else off_rgb, blue_shift_bug)
+    off_rgb = -1 if off_rgb is None else off_rgb
+    n, step = frame.n_points, frame.point_step
+    if len(frame.data) < n * step or n < 0:
+        raise ValueError(f"{len(frame.data)} bytes hold fewer than {n} "
+                         f"records of {step} bytes")
+    if max(off_x, off_y, off_z, off_rgb) + 4 > step \
+            or min(off_x, off_y, off_z) < 0:
+        raise ValueError("a field lies outside the point record")
+    return n, step, off_x, off_y, off_z, off_rgb
+
+
+def decode_frame(frame: CloudFrame, blue_shift_bug: bool = False
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """CloudFrame -> ((N,3) f32 xyz, (N,3) f32 rgb in [0,255])."""
+    return native.decode_xyzrgb(frame.data, *record_fields(frame),
+                                blue_shift_bug)
 
 
 def _decode_numpy(frame: CloudFrame, off_x: int, off_y: int, off_z: int,

@@ -14,11 +14,15 @@ contract:
 * ``push_frame(frame, pose=None)`` queues one PointCloud2-style
   ``runtime/decode.CloudFrame`` (the subscriber callback).  Without a pose
   it asks ``pose_provider(frame)``; a lookup that raises drops the frame
-  and counts it in ``pose_failures``.  The worker decodes it on the host
-  (``decode.decode_frame``), cuts it to ``max_points`` (counted in
-  ``frames_truncated`` / ``points_truncated``) and integrates it through
-  the planar frontend, kernel K5 (the TSDF family: its planar sample map,
-  kernel T2p);
+  and counts it in ``pose_failures``.  The worker checks its record
+  layout (``decode.record_fields``), cuts it to ``max_points`` (counted
+  in ``frames_truncated`` / ``points_truncated``), copies its first
+  ``max_points`` records as they arrived into the device batch and
+  integrates them through the planar frontend's record wire, kernel K5,
+  which decodes them on the card (``cloud_frames_card_decoded``).  The
+  TSDF family and sharded sessions decode on the host
+  (``decode.decode_frame``) into the planar f32 wire
+  (``cloud_frames_host_decoded``): kernel T2p, or routing and K5;
 * ``run_source(source)`` pushes every ``(frame, pose)`` of a
   ``runtime/sources.Source`` and drains;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
@@ -47,13 +51,15 @@ and mean in ``metrics()`` (``{total_s, count, mean_ms}``) and, while
 (``device_step``'s range is ``step``).  The spans split the stages:
 
 * ``batch_wait``: the worker asleep waiting for a K-batch to fill;
-* ``decode.native`` / ``decode.pack`` (in ``decode``), once a frame: the
-  native decode, and the cut to ``max_points`` and copy into the padded
-  batch; ``decode.pack`` once more a batch, the zeroed batch's
-  allocation;
+* ``decode``, once a cloud dispatch: on the record wire the layout check
+  alone; on the host decode it holds ``decode.native`` / ``decode.pack``,
+  once a frame: the native decode, and the cut to ``max_points`` and copy
+  into the padded batch; ``decode.pack`` once more a batch, the zeroed
+  batch's allocation;
 * ``device_step.stage`` / ``.upload`` / ``.launch`` (in ``device_step``),
   once a dispatch: the host's stacking of the batch, its copies to the
-  device, the pipeline's step call;
+  device (on the record wire, each frame's records straight from its
+  message into the device batch), the pipeline's step call;
 * ``refine.read`` (in ``refine``, or in ``device_step`` when a single
   step refines), once a pass of a single grid: the pass's one read of
   the device, which waits for the work queued before it;
@@ -114,7 +120,7 @@ from ..models.tsdf import TsdfConfig, TsdfPipeline
 from ..parallel.sharding import ShardedFusion, shard_devices
 from ..utils.profiling import StageTimers
 from . import native
-from .decode import CloudFrame, decode_frame
+from .decode import CloudFrame, decode_frame, record_fields
 from .sources import Source
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
@@ -181,6 +187,9 @@ class FusionSession:
         self._busy = False
         self._errors = []          # failed dispatches into the current grid
         self._last_step = []       # CUDA events after the last dispatch
+        # a single fusion grid decodes clouds on the card (K5's record
+        # wire); the TSDF family and the shards take the host decode
+        self._card_decode = isinstance(self.pipeline, FusionPipeline)
         self._cuda = [d for d in dict.fromkeys(
             getattr(self.pipeline, "devices", [self.pipeline.device]))
             if d.type == "cuda"]
@@ -193,6 +202,8 @@ class FusionSession:
         self._pose_failures = 0
         self._frames_truncated = 0   # frames cut to max_points
         self._points_truncated = 0   # points cut from them
+        self._cloud_card = 0         # cloud frames decoded by K5
+        self._cloud_host = 0         # cloud frames decoded on the host
         self.timers = StageTimers()
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="fusion-worker")
@@ -242,7 +253,14 @@ class FusionSession:
         if rays is not None and self._rays is None:
             self._rays = pipe.put(np.asarray(rays, np.float32))
         zc = torch.zeros((K,), dtype=torch.int32, device=dev)
-        if planar:
+        if planar and self._card_decode:
+            # rows of 16-byte records; counts of 0, so nothing is read
+            zr = torch.zeros((K, 16 * N), dtype=torch.uint8, device=dev)
+            zt = torch.zeros((K, 6), dtype=torch.int32, device=dev)
+            g = pipe.step(g, zr[0], None, zt[0], pose)
+            if K > 1:
+                g = pipe.step_batch(g, zr, None, zt, poses)
+        elif planar:
             zp = torch.zeros((K, 3, N), dtype=torch.float32, device=dev)
             g = pipe.step(g, zp[0], zp[0], zc[0], pose)
             if K > 1:
@@ -521,6 +539,30 @@ class FusionSession:
                 counts[i] = n
         return pts, rgb, counts
 
+    def _record_table(self, items):
+        """The record wire's (K,6) i32 frame table of K cloud frames
+        (``ops/integrate.record_frontend``), each frame's layout checked
+        and its count cut to ``max_points``, and the device batch's row
+        bytes (the ``decode`` stage)."""
+        table = np.empty((len(items), 6), np.int32)
+        for i, (_, frame, _) in enumerate(items):
+            n, *layout = record_fields(frame)
+            table[i] = [self._truncate(n, 1, "frame"), *layout]
+        return table, self.config.max_points * int(table[:, 1].max())
+
+    def _upload_records(self, items, table, row: int) -> torch.Tensor:
+        """Each frame's kept records, read in place from its message, into
+        its row of one (K, ``row``) u8 device batch; the bytes past them
+        are left as allocated."""
+        rec = torch.empty((len(items), row), dtype=torch.uint8,
+                          device=self.pipeline.device)
+        for i, (_, frame, _) in enumerate(items):
+            nbytes = int(table[i, 0]) * int(table[i, 1])
+            if nbytes:
+                rec[i, :nbytes].copy_(torch.frombuffer(
+                    frame.data, dtype=torch.uint8, count=nbytes))
+        return rec
+
     def _await_device(self) -> None:
         """Wait until the card has finished the previous dispatch, so the
         host runs at most one step ahead (on the CPU every op has finished
@@ -535,7 +577,11 @@ class FusionSession:
         put = self.pipeline.put
         stage = self.timers.stage
         cloud = items[0][0] == "cloud"
-        if cloud:
+        records = cloud and self._card_decode
+        if records:
+            with stage("decode"):
+                table, row = self._record_table(items)
+        elif cloud:
             with stage("decode"):
                 host = self._decode_planar(items)
         else:
@@ -551,11 +597,18 @@ class FusionSession:
                             np.full((k,), n, np.int32))
             with stage("device_step.upload"):
                 poses = put(poses)
-                data, rgb, counts = map(put, host)
+                if records:
+                    # the records carry their colour; the frame table
+                    # takes the count prefix's place
+                    data, rgb = self._upload_records(items, table, row), None
+                    counts = put(table)
+                else:
+                    data, rgb, counts = map(put, host)
             with stage("device_step.launch"), self._glock:
                 if cloud and k == 1:
                     self._grid = self.pipeline.step(
-                        self._grid, data[0], rgb[0], counts[0], poses[0])
+                        self._grid, data[0], rgb if rgb is None else rgb[0],
+                        counts[0], poses[0])
                 elif cloud:
                     self._grid = self.pipeline.step_batch(
                         self._grid, data, rgb, counts, poses)
@@ -578,6 +631,10 @@ class FusionSession:
                 self._last_step.append(torch.cuda.Event())
                 self._last_step[-1].record()
         self._frames_integrated += k
+        if records:
+            self._cloud_card += k
+        elif cloud:
+            self._cloud_host += k
 
     def _run(self) -> None:
         while not self._shutdown:
@@ -624,6 +681,8 @@ class FusionSession:
             "pose_failures": self._pose_failures,
             "frames_truncated": self._frames_truncated,
             "points_truncated": self._points_truncated,
+            "cloud_frames_card_decoded": self._cloud_card,
+            "cloud_frames_host_decoded": self._cloud_host,
             "decode_s": timers.get("decode", {}).get("total_s", 0.0),
             "stage_timers": {k: v for k, v in timers.items()
                              if k in STAGES},

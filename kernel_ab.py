@@ -12,8 +12,8 @@ checkouts of the PyTorch port on one CUDA card, in the order A, B, ...,
 ``--only`` runs the sections named and reports None for the rest:
 ``fusion`` (K1, K2 at its fusion shapes, K3, K4), ``lanes`` (B3, B6,
 B7), ``tsdf`` (T1, K2's TSDF shape, the reduce stage and its parts, a
-dispatch's peak memory, T3), ``planar``
-(K5, T2p), ``routed`` (the offsets, B12), ``queries`` (B11) and
+dispatch's peak memory, T3), ``planar`` (K5 on its f32 and record
+wires, T2p), ``routed`` (the offsets, B12), ``queries`` (B11) and
 ``replays``.
 
 Each run is a process of its own that imports ``hifi_fusion_tpu_torch``
@@ -61,8 +61,12 @@ the ``lanes`` section's checks, which come from the checkout's own
   the config-5 grid after two batches and after every batch of the sweep
   (the grid ``process()`` extracts at the end of the replay);
 * ``depth_frontend``: K1 on the first batch;
-* ``planar_frontend``: K5 on the session's planar wire of the first
+* ``planar_frontend``: K5 on the host decode's planar wire of the first
   batch (``chip_smoke.planar_wires``), for a checkout that has it;
+* ``planar_frontend/records``: K5's record wire on the first batch's
+  PointCloud2 records (``chip_smoke.record_batch``: a (8, 307200 * 16)
+  u8 batch and the frame table), as a fusion session uploads them, for a
+  checkout that has ``integrate.record_frontend``;
 * ``depth_frontend/offset``, ``planar_frontend/offset``: K1 and K5 on the
   same inputs for shard 1 of the bench config split into 4 slabs (its
   local window and coordinate offset), for a checkout with the offset;
@@ -133,6 +137,7 @@ SECTIONS = ("fusion", "lanes", "tsdf", "planar", "routed", "queries",
 TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "hash_insert/tsdf", "normal_fit", "segscan", "dep_stream",
          "tsdf_surface/batch2", "tsdf_surface/replay", "planar_frontend",
+         "planar_frontend/records",
          "tsdf_lanes_planar", "neighbor_count/ror",
          "neighbor_count/occupied", "depth_frontend/offset",
          "planar_frontend/offset", "route_pack/depth", "route_pack/planar",
@@ -380,6 +385,13 @@ def child(root: str, sections=SECTIONS) -> dict:
             torch, lambda: integrate.planar_frontend(p, c, m, t, cfg, q),
             tuple, reps=REPS)
         del p, c, m, t
+    if "planar" in sections and hasattr(integrate, "record_frontend"):
+        wire = cs.record_batch(torch, cs.cloud_frames(frames[:8]),
+                               cfg.max_points, dev)
+        res["planar_frontend/records"] = cs.device_ms(
+            torch, lambda: integrate.record_frontend(*wire, cfg), tuple,
+            reps=REPS)
+        del wire
     if "planar" in sections and hasattr(tsdf, "tsdf_lanes_planar"):
         wire = cs.record_wire(torch, cs.cloud_frames(frames[16:24]),
                               tcfg.base.max_points, dev)

@@ -394,3 +394,103 @@ def test_push_frame_truncates_and_counts():
     want = convert.grid_to_numpy(g)
     for k in ("key", "n_pts", "rgb_sum"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _clouds():
+    """The depth sweep's frames as PointCloud2 records of their valid
+    pixels, for the port and for the JAX package."""
+    out = []
+    for f in DEPTH:
+        keep = f.depth_q > 0
+        frame = decode.make_cloud_frame(f.points_f32[:, keep].T,
+                                        _rgb8(f.rgb565[keep]))
+        jframe = jdecode.CloudFrame(frame.data, 16, frame.width, 1,
+                                    [jdecode.PointField(p.name, p.offset)
+                                     for p in frame.fields])
+        out.append((frame, jframe, f.pose))
+    return out
+
+
+def _cloud_session(session, clouds, **kw):
+    with session(output_dir=kw.pop("output_dir"), **kw) as s:
+        s.start()
+        for c in clouds:
+            assert s.push_frame(*c)
+        assert s.drain(600)
+        m = s.metrics() if isinstance(s, FusionSession) else None
+        return m, s.process(extra_fields=("cell", "count", "n_pts", "rgb",
+                                          "centroid", "normal",
+                                          "mean_dist"))
+
+
+@pytest.mark.parametrize("fill_wait", [2.0, 0.0], ids=["k4", "k1"])
+def test_push_frame_records_vs_jax_session(tmp_path, fill_wait):
+    """A fusion session decodes its clouds on the card's record wire; its
+    extract is the JAX session's, which decodes them on the host, whether
+    the frames come as K=4 batches or one by one."""
+    from hifi_fusion_tpu.runtime.session import FusionSession as JaxSession
+    clouds = _clouds()
+    m, got = _cloud_session(
+        lambda **kw: FusionSession(SCFG, "cpu", **kw),
+        [(f, p) for f, _, p in clouds], output_dir=str(tmp_path / "port"),
+        batch_fill_wait=fill_wait)
+    _, want = _cloud_session(
+        lambda **kw: JaxSession(jax_config(**SKW), **kw),
+        [(j, p) for _, j, p in clouds], output_dir=str(tmp_path / "jax"),
+        batch_fill_wait=2.0)
+    assert m["frames_integrated"] == 8 and m["dispatch_errors"] == 0
+    assert m["cloud_frames_card_decoded"] == 8
+    assert m["cloud_frames_host_decoded"] == 0
+    assert "decode.native" not in m["spans"]
+    a, b = got["host"], want["host"]
+    assert got["n_points"] == want["n_points"] > 100
+    for f in ("cell", "count", "n_pts", "rgb"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    for f in ("centroid", "normal", "mean_dist"):
+        np.testing.assert_allclose(a[f], b[f], atol=1e-5, err_msg=f)
+
+
+@pytest.mark.parametrize("kind", ["tsdf", "sharded"])
+def test_host_decode_sessions_count_it(kind):
+    """The TSDF family and a sharded session keep the host decode: the
+    counters and the host decode's spans say so."""
+    kw = ({"model": "tsdf"} if kind == "tsdf"
+          else {"n_devices": 2, "route": True})
+    with FusionSession(SCFG, "cpu", batch_fill_wait=2.0, **kw) as s:
+        s.start()
+        for f, _, pose in _clouds():
+            assert s.push_frame(f, pose)
+        assert s.drain(600)
+        m = s.metrics()
+    assert m["frames_integrated"] == 8 and m["dispatch_errors"] == 0
+    assert m["cloud_frames_host_decoded"] == 8
+    assert m["cloud_frames_card_decoded"] == 0
+    st, sp = m["stage_timers"], m["spans"]
+    assert st["decode"]["count"] == 2
+    assert sp["decode.native"]["count"] == 8
+    # a frame's copy, and the batch's allocation before the first
+    assert sp["decode.pack"]["count"] == 8 + 2
+    assert (sp["decode.native"]["total_s"] + sp["decode.pack"]["total_s"]
+            <= st["decode"]["total_s"] + 1e-5)
+
+
+def test_malformed_clouds_raise_and_drop():
+    """A cloud without z, one whose buffer is short and one with a field
+    past its record fail their dispatch with the decode's ValueError and
+    are dropped; the session goes on with the next frame."""
+    f, _, pose = _clouds()[0]
+    bad = [dataclasses.replace(f, fields=[p for p in f.fields
+                                          if p.name != "z"]),
+           dataclasses.replace(f, data=f.data[:-16]),
+           dataclasses.replace(f, fields=f.fields[:3]
+                               + [decode.PointField("rgb", 14)])]
+    with FusionSession(SCFG, "cpu") as s:
+        s.start()
+        for b in bad + [f]:
+            assert s.push_frame(b, pose)
+        assert s.drain(600)
+        m = s.metrics()
+        errors = list(s._errors)
+    assert m["dispatch_errors"] == 3
+    assert all(isinstance(e, ValueError) for e in errors)
+    assert m["frames_integrated"] == m["cloud_frames_card_decoded"] == 1

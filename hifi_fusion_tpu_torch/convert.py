@@ -26,7 +26,7 @@ import torch
 
 from .config import FusionConfig
 from .grid import SCALAR_FIELDS, GridState
-from .models.tsdf import TsdfGrid, tail
+from .models.tsdf import COUNTERS, TsdfGrid, tail
 
 
 def _live_sizes(config: FusionConfig) -> Dict[str, int]:
@@ -125,14 +125,16 @@ def sharded_grid_from_jax(np_fields: Dict[str, np.ndarray],
 def tsdf_grid_from_jax(np_fields: Dict[str, np.ndarray], config,
                        device) -> TsdfGrid:
     """JAX ``TsdfGrid`` fields (numpy) -> port ``TsdfGrid`` on ``device``:
-    ``key`` and ``vstats`` lose their scratch tails."""
+    ``key`` and ``vstats`` lose their scratch tails; ``unique_cells``,
+    which the JAX grid lacks, starts at 0 unless the fields hold it (a
+    port checkpoint)."""
     C = config.base.capacity
     out = {"key": np.asarray(np_fields["key"])[:C],
            "vstats": np.asarray(np_fields["vstats"])[:6 * C]}
     out = {f: torch.from_numpy(np.array(a)).to(device)
            for f, a in out.items()}
-    for name in ("overflow_probe", "overflow_unique", "frames"):
-        out[name] = torch.tensor(int(np_fields[name]), dtype=torch.int32,
+    for name, dtype in COUNTERS.items():
+        out[name] = torch.tensor(int(np_fields.get(name, 0)), dtype=dtype,
                                  device=device)
     return TsdfGrid(**out)
 
@@ -140,13 +142,14 @@ def tsdf_grid_from_jax(np_fields: Dict[str, np.ndarray], config,
 def tsdf_grid_to_numpy(grid: TsdfGrid, config) -> Dict[str, np.ndarray]:
     """Port ``TsdfGrid`` -> numpy fields in the JAX layout, the scratch
     tails restored (``key`` -1, ``vstats`` 0), so the JAX package can take
-    the state back."""
+    the state back; the port's ``unique_cells`` is left out."""
     T = tail(config)
     key = grid.key.detach().cpu().numpy()
     vstats = grid.vstats.detach().cpu().numpy()
     out = {"key": np.concatenate([key, np.full(T, -1, np.int32)]),
            "vstats": np.concatenate([vstats, np.zeros(6 * T, np.float32)])}
-    for name in ("overflow_probe", "overflow_unique", "frames"):
-        out[name] = getattr(grid, name).detach().cpu().numpy()
+    for name in COUNTERS:
+        if name != "unique_cells":           # not a field of the JAX grid
+            out[name] = getattr(grid, name).detach().cpu().numpy()
     return out
 

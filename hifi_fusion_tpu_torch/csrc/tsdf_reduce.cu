@@ -8,7 +8,8 @@
 // hifi_fusion_tpu/ops/scatter.py:187-235), the run starts and ends of the
 // sorted ids, the first U runs' ids and six-channel sums compacted
 // (argsort(~starts)[:U], argsort(~ends)[:U]), overflow_unique +=
-// max(n_u - U, 0), the find-or-insert of those ids and one add of each
+// max(n_u - U, 0) (and the port's unique_cells += min(n_u, U)), the
+// find-or-insert of those ids and one add of each
 // placed cell's sums into vstats.  Its plain version
 // (models/tsdf.py tsdf_reduce_plain) gathers the channels, runs T1's plain
 // ladder and compacts with two torch.nonzero calls and a count, each a
@@ -58,8 +59,9 @@
 //     usums[c, r] (consecutive runs to consecutive words), and the
 //     block's last lane the block's summary.  The block's flag-OR goes to
 //     sflag.  The last valid lane of the batch ends run n_u - 1: its
-//     thread writes the live count min(n_u, U) and adds max(n_u - U, 0)
-//     into overflow_unique; with no valid lane the live count stays 0.
+//     thread writes the live count min(n_u, U), adds it into unique_cells
+//     and adds max(n_u - U, 0) into overflow_unique; with no valid lane
+//     the live count stays 0 and neither counter moves.
 //     M <= 1024 is P2's flat ladder: one CTA, one block of M lanes, 32 a
 //     thread, warp c channel c, and no carries.
 //  2. the carries, a thread a ladder block.  A run's end value is final
@@ -106,6 +108,7 @@ t4_runs_kernel(const int* __restrict__ sid,
                const float* __restrict__ vals6, int M, int U, int tiles,
                int nb, int* __restrict__ uids, float* __restrict__ usums,
                int* __restrict__ n_live, int* __restrict__ overflow_unique,
+               long long* __restrict__ unique_cells,
                float* __restrict__ summ, int* __restrict__ sflag,
                int* __restrict__ carry, int* __restrict__ scratch) {
     constexpr bool FLAT = R == 32;
@@ -216,6 +219,7 @@ t4_runs_kernel(const int* __restrict__ sid,
                 *n_live = U;
                 *overflow_unique += run[r] + 1 - U;
             }
+            *unique_cells += min(run[r] + 1, U);
         }
     }
     if (!FLAT) {
@@ -348,7 +352,8 @@ static inline long t4_scratch_words(int M) {
 extern "C" int launch_tsdf_reduce_runs(const void* sid, const void* order,
                                        const void* vals6, int M, int U,
                                        void* uids, void* usums,
-                                       void* overflow_unique, void* scratch,
+                                       void* overflow_unique,
+                                       void* unique_cells, void* scratch,
                                        long words, void* aux, void* stream) {
     if (words < t4_scratch_words(M)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -366,13 +371,14 @@ extern "C" int launch_tsdf_reduce_runs(const void* sid, const void* order,
         t4_runs_kernel<32><<<1, SCAN_THREADS, 0, st>>>(
             (const int*)sid, (const long long*)order, (const float*)vals6, M,
             U, tiles, nb, (int*)uids, (float*)usums, sc,
-            (int*)overflow_unique, summ, sflag, carry, sc + 2);
+            (int*)overflow_unique, (long long*)unique_cells, summ, sflag,
+            carry, sc + 2);
         return (int)cudaGetLastError();
     }
     t4_runs_kernel<16><<<tiles, SCAN_THREADS, 0, st>>>(
         (const int*)sid, (const long long*)order, (const float*)vals6, M, U,
         tiles, nb, (int*)uids, (float*)usums, sc, (int*)overflow_unique,
-        summ, sflag, carry, sc + 2);
+        (long long*)unique_cells, summ, sflag, carry, sc + 2);
     int rc = (int)cudaGetLastError();
     if (rc) return rc;
     t4_carry_kernel<<<grid_blocks(nb, 256), 256, 0, st>>>(

@@ -127,10 +127,10 @@ _SIGNATURES = {
     # geo_i, radius, cyl_stats, stream
     "launch_buffer_replay": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                              _I, _P, _P, _F, _P, _P],
-    # sid, order, vals6, M, U, uids, usums, overflow_unique, scratch,
-    # words, aux, stream
-    "launch_tsdf_reduce_runs": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _P,
-                                _P],
+    # sid, order, vals6, M, U, uids, usums, overflow_unique, unique_cells,
+    # scratch, words, aux, stream
+    "launch_tsdf_reduce_runs": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _L,
+                                _P, _P],
     # U, scratch (the live count), uslot, usums, vstats, stream
     "launch_tsdf_reduce_scatter": [_I, _P, _P, _P, _P, _P],
 }

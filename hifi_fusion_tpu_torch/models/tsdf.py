@@ -18,11 +18,16 @@ a sample's cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf =
    sums are bit-identical; kernel T1's ladder, ``csrc/segladder.cuh``),
    the first U runs (the U smallest ids; the rest are dropped and counted
    in ``overflow_unique``, as the JAX package's ``[:U]`` drops them)
-   compacted on the card; find-or-insert of those ids, kernel K2
-   (``ops/hashing``), given their live count on the card; one scatter of
-   the per-cell sums into ``vstats`` at the unique slots.  On the card a
-   batch reads nothing back to the host, and no full-width plane of
-   gathered values or running sums is written.
+   compacted on the card, their live count added into ``unique_cells``;
+   find-or-insert of those ids, kernel K2 (``ops/hashing``), given their
+   live count on the card; one scatter of the per-cell sums into
+   ``vstats`` at the unique slots.  On the card a batch reads nothing back
+   to the host, and no full-width plane of gathered values or running sums
+   is written.
+
+Each step runs the three as the spans ``tsdf.lanes``, ``tsdf.sort`` and
+``tsdf.reduce`` (``utils/profiling.span``: host time in the calling
+session's timers, a profiler range of the same name while one records).
 
 Surface extraction (``extract_tsdf``) masks the cells with weight >=
 min_weight and |tsdf| < surface_band * res, sorts them by id, and per
@@ -54,8 +59,13 @@ from ..ops import geometry, hashing
 from ..ops.integrate import _u16_to_i32
 from ..ops.scatter import (segment_ends, segment_reduce_plain,
                            segment_starts)
+from ..utils.profiling import span
 
 BIG = torch.iinfo(torch.int32).max     # sort key of an invalid sample lane
+# the grid's scalar counters and their dtypes; the JAX package's grid has
+# all but ``unique_cells``
+COUNTERS = {"overflow_probe": torch.int32, "overflow_unique": torch.int32,
+            "unique_cells": torch.int64, "frames": torch.int32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +93,7 @@ class TsdfGrid:
     vstats: torch.Tensor           # (6C,) f32 [Σw, Σw*sdf, Σr, Σg, Σb, n_rgb]
     overflow_probe: torch.Tensor   # () i32 inserts dropped (probe bound)
     overflow_unique: torch.Tensor  # () i32 sample cells dropped (U budget)
+    unique_cells: torch.Tensor     # () i64 Σ over batches of the cells kept
     frames: torch.Tensor           # () i32
 
     @property
@@ -102,8 +113,8 @@ def tail(config: TsdfConfig) -> int:
 def make_tsdf_grid(config: TsdfConfig, device) -> TsdfGrid:
     device = torch.device(device)
     C = config.base.capacity
-    zero = {f: torch.zeros((), dtype=torch.int32, device=device)
-            for f in ("overflow_probe", "overflow_unique", "frames")}
+    zero = {f: torch.zeros((), dtype=dt, device=device)
+            for f, dt in COUNTERS.items()}
     return TsdfGrid(
         key=torch.full((C,), -1, dtype=torch.int32, device=device),
         vstats=torch.zeros((6 * C,), dtype=torch.float32, device=device),
@@ -298,6 +309,7 @@ def tsdf_reduce_plain(grid: TsdfGrid, sid, order, vals6, U: int,
     spos = torch.nonzero(starts).squeeze(1)
     epos = torch.nonzero(segment_ends(sid, svalid)).squeeze(1)
     grid.overflow_unique += max(spos.numel() - U, 0)
+    grid.unique_cells += min(spos.numel(), U)
     uids = sid[spos[:U]]
     usums = sums6[:, epos[:U]]
     uslot = hashing.lookup_or_insert(grid.key, uids, config.base.max_probes,
@@ -351,7 +363,8 @@ def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, order: torch.Tensor,
     kernels.check(lib.launch_tsdf_reduce_runs(
         sid.data_ptr(), order.data_ptr(), vals6.data_ptr(), M, U,
         uids.data_ptr(), usums.data_ptr(), grid.overflow_unique.data_ptr(),
-        scratch.data_ptr(), words, aux.data_ptr(), st), "tsdf_reduce")
+        grid.unique_cells.data_ptr(), scratch.data_ptr(), words,
+        aux.data_ptr(), st), "tsdf_reduce")
     if U:
         uslot = hashing.lookup_or_insert(grid.key, uids,
                                          config.base.max_probes,
@@ -365,31 +378,40 @@ def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, order: torch.Tensor,
     return grid
 
 
+def _reduce(grid: TsdfGrid, skey, vals6, K: int, U: int,
+            config: TsdfConfig) -> TsdfGrid:
+    """The lanes of K frames into the grid with budget U: the spans
+    ``tsdf.sort`` and ``tsdf.reduce``."""
+    with span("tsdf.sort"):
+        sid, order = sort_lanes(skey)
+    with span("tsdf.reduce"):
+        tsdf_reduce(grid, sid, order, vals6, U, config)
+    grid.frames += K
+    return grid
+
+
 def _reduce_batch(grid: TsdfGrid, skey, vals6, K: int,
                   config: TsdfConfig) -> TsdfGrid:
     """A K-frame batch's lanes into the grid; U follows tsdf.py:211-213."""
     U = min(config.batch_unique
             or K * 4 * config.base.max_unique_per_frame,
             skey.shape[0], tail(config))
-    tsdf_reduce(grid, *sort_lanes(skey), vals6, U, config)
-    grid.frames += K
-    return grid
+    return _reduce(grid, skey, vals6, K, U, config)
 
 
 def _reduce_frame(grid: TsdfGrid, skey, vals6,
                   config: TsdfConfig) -> TsdfGrid:
     """One frame's lanes into the grid; U follows tsdf.py:188."""
     U = min(4 * config.base.max_unique_per_frame, skey.shape[0])
-    tsdf_reduce(grid, *sort_lanes(skey), vals6, U, config)
-    grid.frames += 1
-    return grid
+    return _reduce(grid, skey, vals6, 1, U, config)
 
 
 def integrate_tsdf_batch_depth(grid: TsdfGrid, depth, rgb565, counts,
                                poses, rays, config: TsdfConfig) -> TsdfGrid:
     """K depth frames ((K,N) u16 depth and rgb565, (K,) i32 counts,
     (K,4,4) poses) in one sort / scan / insert / scatter pass, in place."""
-    skey, vals6 = tsdf_lanes(depth, rgb565, counts, poses, rays, config)
+    with span("tsdf.lanes"):
+        skey, vals6 = tsdf_lanes(depth, rgb565, counts, poses, rays, config)
     return _reduce_batch(grid, skey, vals6, depth.shape[0], config)
 
 
@@ -397,8 +419,9 @@ def integrate_tsdf_depth(grid: TsdfGrid, depth, rgb565, count, pose, rays,
                          config: TsdfConfig) -> TsdfGrid:
     """One depth frame ((N,) u16 depth and rgb565, 0-d i32 count, (4,4)
     pose), in place."""
-    skey, vals6 = tsdf_lanes(depth[None], rgb565[None], count.reshape(1),
-                             pose[None], rays, config)
+    with span("tsdf.lanes"):
+        skey, vals6 = tsdf_lanes(depth[None], rgb565[None],
+                                 count.reshape(1), pose[None], rays, config)
     return _reduce_frame(grid, skey, vals6, config)
 
 
@@ -407,7 +430,8 @@ def integrate_tsdf_batch(grid: TsdfGrid, points, rgb, mask, poses,
     """K planar frames ((K,3,N) f32 camera points and colour, (K,N) bool
     mask or (K,) i32 count prefixes, (K,4,4) poses) in one sort / scan /
     insert / scatter pass, in place (tsdf.py:192-215)."""
-    skey, vals6 = tsdf_lanes_planar(points, rgb, mask, poses, config)
+    with span("tsdf.lanes"):
+        skey, vals6 = tsdf_lanes_planar(points, rgb, mask, poses, config)
     return _reduce_batch(grid, skey, vals6, poses.shape[0], config)
 
 
@@ -416,8 +440,9 @@ def integrate_tsdf(grid: TsdfGrid, points, rgb, mask, pose,
     """One planar frame ((3,N) f32 camera points and colour, (N,) bool
     mask or 0-d i32 count, (4,4) pose), in place (tsdf.py:185-189)."""
     mask = mask.reshape(1) if mask.dim() == 0 else mask[None]
-    skey, vals6 = tsdf_lanes_planar(points[None], rgb[None], mask,
-                                    pose[None], config)
+    with span("tsdf.lanes"):
+        skey, vals6 = tsdf_lanes_planar(points[None], rgb[None], mask,
+                                        pose[None], config)
     return _reduce_frame(grid, skey, vals6, config)
 
 
@@ -466,8 +491,8 @@ def tsdf_surface_plain(cell, order, grid, config):
             has = (sl >= 0) & (v2[safe, 0] > 0)
             vals.append((torch.where(has, tsdf_all[safe], t_here), has))
         (fp, okp), (fm, okm) = vals
-        span = (okp.to(f32) + okm.to(f32)) * _f32(res[axis], dev)
-        grads.append((fp - fm) / torch.maximum(span, _f32(1e-9, dev)))
+        across = (okp.to(f32) + okm.to(f32)) * _f32(res[axis], dev)
+        grads.append((fp - fm) / torch.maximum(across, _f32(1e-9, dev)))
     gx, gy, gz = grads
     # XLA's rounding of this sum of squares varies with its fusion; the
     # contracted form nearest to it (checks.py states the tolerance)
@@ -645,10 +670,11 @@ class TsdfPipeline:
 
     def grid_metrics(self, grid: TsdfGrid) -> dict:
         """tsdf.py:421-431: occupied slots, frames, both overflow
-        counters; one fetch."""
+        counters; and the port's ``unique_cells``; one fetch."""
         vals = torch.stack([(grid.key >= 0).sum().to(torch.int64),
                             grid.frames.to(torch.int64),
                             grid.overflow_probe.to(torch.int64),
-                            grid.overflow_unique.to(torch.int64)]).tolist()
+                            grid.overflow_unique.to(torch.int64),
+                            grid.unique_cells.to(torch.int64)]).tolist()
         return dict(zip(("occupied_voxels", "frames", "overflow_probe",
-                         "overflow_unique"), vals))
+                         "overflow_unique", "unique_cells"), vals))

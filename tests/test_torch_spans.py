@@ -16,7 +16,11 @@
   ``device_step.upload`` range lies inside its ``step`` range; with no
   profiler recording no range is opened;
 * two sessions in one process, and ``span`` calls on several threads,
-  keep their totals apart.
+  keep their totals apart;
+* a TSDF session's steps open ``tsdf.lanes``, ``tsdf.sort`` and
+  ``tsdf.reduce`` once a dispatch, inside ``device_step.launch``; under
+  the profiler each is a range inside the worker's ``step``; with no
+  profiler recording they open none.
 """
 
 import json
@@ -48,6 +52,8 @@ CLOUDS = [(make_cloud_frame(f.points_cam, f.rgb), f.pose)
 # the refine passes of a sweep: its marks, whatever the batching
 PASSES = sum(bool(refine_due(f, 1, CFG)) for f in range(1, N_FRAMES + 1))
 CHILDREN = ("device_step.stage", "device_step.upload", "device_step.launch")
+TSDF = {"truncation": 0.03, "n_samples": 5, "min_weight": 1.0}
+TSDF_SPANS = ("tsdf.lanes", "tsdf.sort", "tsdf.reduce")
 
 
 def _push(s, wire, frames):
@@ -59,13 +65,14 @@ def _push(s, wire, frames):
             assert s.push_frame(*f)
 
 
-def _scan(tmp, wire, batched):
+def _scan(tmp, wire, batched, model="fusion"):
     """A scan: one frame, a pause (a K-batch fills), the rest, a drain
     and a ``process()``; the metrics after it, with the ``process()``
     call's wall seconds."""
     frames = DEPTH if wire == "depth" else CLOUDS
     with FusionSession(CFG, "cpu", output_dir=str(tmp),
-                       batch_fill_wait=5.0 if batched else 0.0) as s:
+                       batch_fill_wait=5.0 if batched else 0.0, model=model,
+                       model_params=TSDF if model == "tsdf" else None) as s:
         s.start()
         _push(s, wire, frames[:1])
         time.sleep(0.2)
@@ -276,3 +283,79 @@ def test_span_goes_to_the_innermost_stage_of_its_thread():
     with span("nowhere"):
         pass
     assert all("nowhere" not in t.report() for t in timers)
+
+
+@pytest.fixture(scope="module")
+def tsdf_scans(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tsdf_spans")
+    return {(w, b): _scan(tmp / f"{w}{b}", w, b, model="tsdf")
+            for w in ("depth", "planar") for b in (False, True)}
+
+
+@pytest.mark.parametrize("wire,batched", CASES, ids=IDS)
+def test_tsdf_spans_once_a_dispatch(tsdf_scans, wire, batched):
+    """A TSDF step opens each of its three spans once a dispatch, single
+    frame or K-batch, depth or planar, inside the session's launch."""
+    m = tsdf_scans[wire, batched]
+    st, sp = m["stage_timers"], m["spans"]
+    assert m["frames_integrated"] == N_FRAMES and m["dispatch_errors"] == 0
+    dispatches = N_FRAMES // 4 if batched else N_FRAMES
+    assert st["device_step"]["count"] == dispatches
+    for name in TSDF_SPANS:
+        assert sp[name]["count"] == dispatches, name
+        assert set(sp[name]) == {"total_s", "count", "mean_ms"}
+    assert not set(TSDF_SPANS) & STAGES
+    eps = 1e-5                                  # the report's rounding
+    assert sum(sp[n]["total_s"] for n in TSDF_SPANS) \
+        <= sp["device_step.launch"]["total_s"] + eps
+
+
+def test_tsdf_ranges_nested_in_step_on_the_worker(tmp_path):
+    """Under the profiler (all threads) each TSDF span is a range of its
+    own name, once a dispatch, inside a ``step`` of the worker's thread."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    with FusionSession(CFG, "cpu", output_dir=str(tmp_path),
+                       batch_fill_wait=5.0, model="tsdf",
+                       model_params=TSDF) as s:
+        s.start()
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            _push(s, "depth", DEPTH)
+            assert s.drain(300)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    rs = _ranges(path)
+    steps = [r for r in rs if r["name"] == "step"]
+    assert len(steps) == N_FRAMES // 4
+    for name in TSDF_SPANS:
+        inner = [r for r in rs if r["name"] == name]
+        assert len(inner) == len(steps), name
+        for r in inner:
+            assert any(st["tid"] == r["tid"] and st["ts"] <= r["ts"]
+                       and r["ts"] + r["dur"] <= st["ts"] + st["dur"]
+                       for st in steps), name
+
+
+def test_tsdf_no_range_without_a_profiler(tmp_path, monkeypatch):
+    """With no profiler recording a TSDF session's spans are counted and
+    open no ``record_function``."""
+    calls = []
+    real = autograd_profiler.record_function
+
+    def counted(name, *a, **kw):
+        calls.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(autograd_profiler, "record_function", counted)
+    assert not autograd_profiler._is_profiler_enabled
+    with FusionSession(CFG, "cpu", output_dir=str(tmp_path),
+                       batch_fill_wait=5.0, model="tsdf",
+                       model_params=TSDF) as s:
+        s.start()
+        _push(s, "depth", DEPTH)
+        assert s.drain(300)
+        spans = s.metrics()["spans"]
+    assert all(spans[n]["count"] == N_FRAMES // 4 for n in TSDF_SPANS)
+    assert calls == []

@@ -234,7 +234,11 @@ def test_session_end_to_end(tmp_path):
             out[name] = s.process(ascii_mode=True)
     port, ref = out["port"], out["jax"]
     assert port["n_points"] == ref["n_points"] > 200
-    assert port["grid_metrics"] == ref["grid_metrics"]
+    # the port's counter of the cells each batch kept: one batch into an
+    # empty grid keeps every cell it occupies
+    pm = dict(port["grid_metrics"])
+    assert pm.pop("unique_cells") == ref["grid_metrics"]["occupied_voxels"]
+    assert pm == ref["grid_metrics"]
     cloud, n = read_pcd(port["cloud"])
     want, _ = read_pcd(ref["cloud"])
     assert n == port["n_points"]

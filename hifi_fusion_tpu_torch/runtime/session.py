@@ -14,10 +14,11 @@ contract:
 * ``push_frame(frame, pose=None)`` queues one PointCloud2-style
   ``runtime/decode.CloudFrame`` (the subscriber callback).  Without a pose
   it asks ``pose_provider(frame)``; a lookup that raises drops the frame
-  and counts it in ``pose_failures``.  The worker checks its record
-  layout (``decode.record_fields``), cuts it to ``max_points`` (counted
-  in ``frames_truncated`` / ``points_truncated``), copies its first
-  ``max_points`` records as they arrived into the device batch and
+  and counts it in ``pose_failures``.  Its record layout is checked
+  (``decode.record_fields``) and its first ``max_points`` records are
+  copied as they arrived into a row of the staging ring; the worker cuts
+  it to ``max_points`` (counted in ``frames_truncated`` /
+  ``points_truncated``), fills the device batch from the rows and
   integrates them through the planar frontend's record wire, kernel K5,
   which decodes them on the card (``cloud_frames_card_decoded``).  The
   TSDF family and sharded sessions decode on the host
@@ -26,8 +27,9 @@ contract:
 * ``run_source(source)`` pushes every ``(frame, pose)`` of a
   ``runtime/sources.Source`` and drains;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
-  (u16 z-depth, rgb565, camera pose; the (3,N) ray table on first use);
-  a frame wider than ``max_points`` is cut and counted the same way;
+  (u16 z-depth, rgb565, camera pose; the (3,N) ray table on first use),
+  copied into a row of the staging ring; a frame wider than
+  ``max_points`` is cut and counted the same way;
 * ``drain()`` waits until the queue is empty and the device is idle;
 * ``process(cloud_name, meta_name, ascii_mode, drain_timeout, variants,
   extra_fields)`` drains, runs the final refine, extracts, writes the
@@ -56,10 +58,14 @@ and mean in ``metrics()`` (``{total_s, count, mean_ms}``) and, while
   once a frame: the native decode, and the cut to ``max_points`` and copy
   into the padded batch; ``decode.pack`` once more a batch, the zeroed
   batch's allocation;
+* ``push.stage``, once a frame that takes a ring row, on the pushing
+  thread: the frame's bytes copied into its row;
 * ``device_step.stage`` / ``.upload`` / ``.launch`` (in ``device_step``),
-  once a dispatch: the host's stacking of the batch, its copies to the
-  device (on the record wire, each frame's records straight from its
-  message into the device batch), the pipeline's step call;
+  once a dispatch: the host's staging of the batch (its ring rows grouped
+  into runs; without rows, the stacking of its arrays), its copies to
+  the device (from the rows, non-blocking; without rows, pageable
+  ``put``s, on the record wire each frame's records straight from its
+  message), the pipeline's step call;
 * ``refine.read`` (in ``refine``, or in ``device_step`` when a single
   step refines), once a pass of a single grid: the pass's one read of
   the device, which waits for the work queued before it;
@@ -89,6 +95,17 @@ of one width).  With neither, every frame is stepped alone.  Before a
 dispatch the worker waits for the previous one's device work
 (``device_wait``), so the host runs at most one step ahead of the card.
 
+The staging ring (``runtime/staging.py``) is allocated at the first
+pushed frame that can take a row and keeps that frame's layout for the
+session's life, across ``reset()``: depth frames of that width, or
+records of that point step.  Its rows are pinned on a CUDA device and
+plain host memory on the CPU; there are ``queue_depth`` + 2 K + 1 of
+them (the queue, the frame being pushed while a full queue still holds
+the frame it drops, and the two dispatches in flight), so a frame pushed
+from one thread always finds one.  Frames of another layout, clouds
+decoded on the host (the TSDF family) and sharded sessions take no row:
+the worker stacks and ``put``s them as they are.
+
 ``n_devices > 1`` runs the slab-sharded pipeline
 (``parallel/sharding.ShardedFusion``) behind the same contract, shard
 ``j`` on ``cuda:(j % device_count)`` for a CUDA ``device`` and on
@@ -107,7 +124,7 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,6 +139,7 @@ from ..utils.profiling import StageTimers
 from . import native
 from .decode import CloudFrame, decode_frame, record_fields
 from .sources import Source
+from .staging import StagingRing
 
 log = logging.getLogger("hifi_fusion_tpu_torch")
 
@@ -130,6 +148,18 @@ log = logging.getLogger("hifi_fusion_tpu_torch")
 STAGES = frozenset({"decode", "device_step", "device_wait", "refine",
                     "process_refine", "process_extract", "process_export",
                     "process_csv_wait", "process_metrics", "process_clear"})
+
+
+class _Frame(NamedTuple):
+    """A queued frame: ``kind`` "cloud" or "depth"; ``shape``, a cloud's
+    ``(n_points,)`` or the depth image's shape; ``data`` (the CloudFrame,
+    or the depth and rgb565 arrays) and ``pose`` as pushed, both None once
+    the frame is staged into its ring row ``slot``."""
+    kind: str
+    shape: tuple
+    data: object
+    pose: Optional[np.ndarray]
+    slot: Optional[int]
 
 
 def batch_frames(config: FusionConfig) -> int:
@@ -186,10 +216,17 @@ class FusionSession:
         self._started = False
         self._busy = False
         self._errors = []          # failed dispatches into the current grid
-        self._last_step = []       # CUDA events after the last dispatch
+        # the CUDA events after the last dispatch and the ring rows it
+        # holds until they have fired
+        self._held = ([], [])
         # a single fusion grid decodes clouds on the card (K5's record
         # wire); the TSDF family and the shards take the host decode
         self._card_decode = isinstance(self.pipeline, FusionPipeline)
+        # the staging ring, made at the first frame that can take a row;
+        # a sharded session stages nothing
+        self._ring = None
+        self._ring_lock = threading.Lock()
+        self._stages = not isinstance(self.pipeline, ShardedFusion)
         self._cuda = [d for d in dict.fromkeys(
             getattr(self.pipeline, "devices", [self.pipeline.device]))
             if d.type == "cuda"]
@@ -219,7 +256,9 @@ class FusionSession:
     def reset(self, full: bool = False) -> None:
         self._started = False
         with self._qlock:
+            queued = [f.slot for f in self._queue]
             self._queue.clear()
+        self._release(queued)
         if full:
             self.drain()
             with self._glock:
@@ -415,7 +454,13 @@ class FusionSession:
                 self._pose_failures += 1
                 log.warning("pose lookup failed, dropping frame: %s", e)
                 return False
-        self._enqueue(("cloud", frame, np.asarray(pose, np.float32)))
+        pose = np.asarray(pose, np.float32)
+        shape = (frame.n_points,)
+        slot = self._stage_records(frame, pose) if self._card_decode \
+            else None
+        if slot is not None:    # the queue holds the row, not the message
+            frame = pose = None
+        self._enqueue(_Frame("cloud", shape, frame, pose, slot))
         return True
 
     def push_depth_frame(self, depth_q: np.ndarray, rgb565: np.ndarray,
@@ -431,9 +476,14 @@ class FusionSession:
             if rays is None:
                 raise ValueError("push_depth_frame needs rays on first call")
             self._rays = self.pipeline.put(np.asarray(rays, np.float32))
-        self._enqueue(("depth", np.asarray(depth_q, np.uint16),
-                       np.asarray(rgb565, np.uint16),
-                       np.asarray(pose, np.float32)))
+        depth_q = np.asarray(depth_q, np.uint16)
+        rgb565 = np.asarray(rgb565, np.uint16)
+        pose = np.asarray(pose, np.float32)
+        slot = self._stage_depth(depth_q, rgb565, pose)
+        data = (depth_q, rgb565)
+        if slot is not None:    # the queue holds the row, not the arrays
+            data = pose = None
+        self._enqueue(_Frame("depth", depth_q.shape, data, pose, slot))
         return True
 
     def run_source(self, source: Source, auto_start: bool = True) -> None:
@@ -444,21 +494,113 @@ class FusionSession:
             self.push_frame(frame, pose)
         self.drain()
 
-    def _enqueue(self, item) -> None:
+    def _enqueue(self, item: _Frame) -> None:
+        """Queue ``item``; a full queue drops its oldest frame, whose row
+        is released."""
+        gone = None
         with self._qlock:
             if len(self._queue) == self._queue.maxlen:
                 self._frames_dropped += 1
+                gone = self._queue[0] if self._queue else item
             self._queue.append(item)
+        if gone is not None:
+            self._release([gone.slot])
         self._wake.set()
+
+    # -- staging ------------------------------------------------------------
+    def _stage(self, key: tuple, fields: Dict[str, tuple],
+               fill: Callable) -> Optional[int]:
+        """The ring row that ``fill(ring, slot)`` copied a frame of
+        layout ``key`` into (the span ``push.stage``), or None where the
+        frame takes no row: the session stages nothing, the ring holds
+        another layout, or every row is held.  The first frame that can
+        take a row makes the ring, with the rows ``fields`` gives."""
+        if not self._stages:
+            return None
+        if self._ring is None:
+            with self._ring_lock:
+                if self._ring is None:
+                    self._ring = StagingRing(
+                        key, fields, self._queue.maxlen + 2 * self._kb + 1,
+                        pin=self.pipeline.device.type == "cuda")
+                    log.info("staging ring: %d rows of %s, %.3f GB of host "
+                             "memory", self._ring.rows, key,
+                             self._ring.nbytes / 1e9)
+        ring = self._ring
+        if ring.key != key:
+            return None
+        slot = ring.take()
+        if slot is None:
+            return None
+        try:
+            with self.timers.stage("push.stage"):
+                fill(ring, slot)
+        except BaseException:
+            ring.release([slot])
+            raise
+        return slot
+
+    def _stage_depth(self, depth_q, rgb565, pose) -> Optional[int]:
+        """Stage a depth frame, cut to ``max_points``: its u16 depth,
+        rgb565 and pose (a 1-D image with its colour alike and a (4,4)
+        pose; anything else takes no row and meets the dispatch's checks
+        as pushed)."""
+        if depth_q.ndim != 1 or rgb565.shape != depth_q.shape \
+                or pose.shape != (4, 4):
+            return None
+        n = min(depth_q.shape[0], self.config.max_points)
+
+        def fill(ring, slot):
+            ring.write(slot, "depth", np.ascontiguousarray(depth_q[:n]),
+                       2 * n)
+            ring.write(slot, "rgb", np.ascontiguousarray(rgb565[:n]), 2 * n)
+            ring.write(slot, "pose", np.ascontiguousarray(pose), 64)
+
+        return self._stage(("depth", n), {"depth": ((n,), torch.uint16),
+                                          "rgb": ((n,), torch.uint16),
+                                          "pose": ((4, 4), torch.float32)},
+                           fill)
+
+    def _stage_records(self, frame: CloudFrame, pose) -> Optional[int]:
+        """Stage a cloud for the record wire: its first ``max_points``
+        records, read in place from its message, its row of the frame
+        table (``_record_table``'s) and its pose.  A frame whose layout
+        check fails, or with another pose shape, takes no row, so the
+        dispatch refuses it as before."""
+        try:
+            n, step, *layout = record_fields(frame)
+        except ValueError:
+            return None
+        if pose.shape != (4, 4):
+            return None
+        cap = self.config.max_points
+        kept = min(n, cap)
+        table = np.array([kept, step, *layout], np.int32)
+
+        def fill(ring, slot):
+            ring.write(slot, "records", frame.data, kept * step)
+            ring.write(slot, "table", table, 24)
+            ring.write(slot, "pose", np.ascontiguousarray(pose), 64)
+
+        return self._stage(("records", cap * step),
+                           {"records": ((cap * step,), torch.uint8),
+                            "table": ((6,), torch.int32),
+                            "pose": ((4, 4), torch.float32)}, fill)
+
+    def _release(self, slots) -> None:
+        """Release the ring rows among ``slots`` (None: no row)."""
+        slots = [s for s in slots if s is not None]
+        if slots:
+            self._ring.release(slots)
 
     # -- worker -----------------------------------------------------------
     @staticmethod
-    def _shape(item):
-        """Frames batch together only when their shapes agree: a cloud is
-        padded to ``max_points`` on decode, a depth frame keeps its
-        width."""
-        return ("cloud",) if item[0] == "cloud" else ("depth",
-                                                      item[1].shape)
+    def _shape(item: _Frame):
+        """Frames batch together only when their shapes agree and all or
+        none of them are staged: a cloud is padded to ``max_points`` on
+        decode, a depth frame keeps its width."""
+        return (item.kind, item.slot is not None,
+                item.shape if item.kind == "depth" else ())
 
     def _pop_items(self):
         """One frame, or a K-batch of frames of one kind and shape when it
@@ -528,10 +670,10 @@ class FusionSession:
             pts = np.zeros((k, 3, N), np.float32)
             rgb = np.zeros((k, 3, N), np.float32)
             counts = np.zeros((k,), np.int32)
-        for i, (_, frame, _) in enumerate(items):
+        for i, f in enumerate(items):
             with stage("decode.native"):
                 xyz, col = decode_frame(
-                    frame, blue_shift_bug=self.config.bug_compat_blue_shift)
+                    f.data, blue_shift_bug=self.config.bug_compat_blue_shift)
             with stage("decode.pack"):
                 n = self._truncate(xyz.shape[0], 1, "frame")
                 pts[i, :, :n] = xyz[:n].T
@@ -545,8 +687,8 @@ class FusionSession:
         and its count cut to ``max_points``, and the device batch's row
         bytes (the ``decode`` stage)."""
         table = np.empty((len(items), 6), np.int32)
-        for i, (_, frame, _) in enumerate(items):
-            n, *layout = record_fields(frame)
+        for i, f in enumerate(items):
+            n, *layout = record_fields(f.data)
             table[i] = [self._truncate(n, 1, "frame"), *layout]
         return table, self.config.max_points * int(table[:, 1].max())
 
@@ -556,54 +698,87 @@ class FusionSession:
         are left as allocated."""
         rec = torch.empty((len(items), row), dtype=torch.uint8,
                           device=self.pipeline.device)
-        for i, (_, frame, _) in enumerate(items):
+        for i, f in enumerate(items):
             nbytes = int(table[i, 0]) * int(table[i, 1])
             if nbytes:
                 rec[i, :nbytes].copy_(torch.frombuffer(
-                    frame.data, dtype=torch.uint8, count=nbytes))
+                    f.data.data, dtype=torch.uint8, count=nbytes))
         return rec
 
     def _await_device(self) -> None:
         """Wait until the card has finished the previous dispatch, so the
         host runs at most one step ahead (on the CPU every op has finished
-        when it returns, and there is nothing to wait for)."""
+        when it returns, and there is nothing to wait for), then release
+        the ring rows it held."""
+        with self._qlock:
+            events, slots = self._held
+            self._held = ([], [])
         with self.timers.stage("device_wait"):
-            for event in self._last_step:
+            for event in events:
                 event.synchronize()
+        self._release(slots)
+
+    def _rows_batch(self, items):
+        """``(data, rgb, counts, poses)`` of a staged batch on the device,
+        filled from its ring rows with non-blocking copies: u16 depth and
+        rgb565 with a count a frame, or records (no ``rgb``) with the
+        frame table in the counts' place."""
+        ring = self._ring
+        k = len(items)
+        dev = self.pipeline.device
+        with self.timers.stage("device_step.stage"):
+            runs = ring.runs([f.slot for f in items])
+        with self.timers.stage("device_step.upload"):
+            b = ring.batch(runs, k, dev)
+            if "records" in b:
+                return b["records"], None, b["table"], b["pose"]
+            counts = torch.full((k,), b["depth"].shape[1],
+                                dtype=torch.int32, device=dev)
+            return b["depth"], b["rgb"], counts, b["pose"]
 
     def _dispatch(self, items) -> None:
         cfg = self.config
         k = len(items)
         put = self.pipeline.put
         stage = self.timers.stage
-        cloud = items[0][0] == "cloud"
+        cloud = items[0].kind == "cloud"
         records = cloud and self._card_decode
+        staged = items[0].slot is not None
         if records:
             with stage("decode"):
-                table, row = self._record_table(items)
+                if staged:
+                    # the layout was checked and the frame table staged at
+                    # push time; the cut is counted here
+                    for f in items:
+                        self._truncate(f.shape[0], 1, "frame")
+                else:
+                    table, row = self._record_table(items)
         elif cloud:
             with stage("decode"):
                 host = self._decode_planar(items)
         else:
-            n = self._truncate(items[0][1].shape[-1], k, "depth frame")
+            n = self._truncate(items[0].shape[-1], k, "depth frame")
         self._await_device()
         with stage("device_step"):
-            # the host's work first, then every copy, then the launch
-            with stage("device_step.stage"):
-                poses = np.stack([f[-1] for f in items])
-                if not cloud:
-                    host = (np.stack([f[1][:n] for f in items]),
-                            np.stack([f[2][:n] for f in items]),
-                            np.full((k,), n, np.int32))
-            with stage("device_step.upload"):
-                poses = put(poses)
-                if records:
-                    # the records carry their colour; the frame table
-                    # takes the count prefix's place
-                    data, rgb = self._upload_records(items, table, row), None
-                    counts = put(table)
-                else:
-                    data, rgb, counts = map(put, host)
+            if staged:
+                data, rgb, counts, poses = self._rows_batch(items)
+            else:
+                # the host's work first, then every copy
+                with stage("device_step.stage"):
+                    poses = np.stack([f.pose for f in items])
+                    if not cloud:
+                        host = (np.stack([f.data[0][:n] for f in items]),
+                                np.stack([f.data[1][:n] for f in items]),
+                                np.full((k,), n, np.int32))
+                with stage("device_step.upload"):
+                    poses = put(poses)
+                    if records:
+                        # the records carry their colour; the frame table
+                        # takes the count prefix's place
+                        data = self._upload_records(items, table, row)
+                        rgb, counts = None, put(table)
+                    else:
+                        data, rgb, counts = map(put, host)
             with stage("device_step.launch"), self._glock:
                 if cloud and k == 1:
                     self._grid = self.pipeline.step(
@@ -625,16 +800,25 @@ class FusionSession:
                 self._frames_integrated + k, k, cfg):
             with stage("refine"), self._glock:
                 self._grid = self.pipeline.refine(self._grid)
-        self._last_step = []
-        for dev in self._cuda:
-            with torch.cuda.device(dev):
-                self._last_step.append(torch.cuda.Event())
-                self._last_step[-1].record()
         self._frames_integrated += k
         if records:
             self._cloud_card += k
         elif cloud:
             self._cloud_host += k
+
+    def _hold(self, items) -> None:
+        """After a dispatch, failed or not: record the events that follow
+        its copies and launches, and hold its ring rows until they have
+        fired (with the previous dispatch's, where a failure came before
+        the wait for them)."""
+        events = []
+        for dev in self._cuda:
+            with torch.cuda.device(dev):
+                events.append(torch.cuda.Event())
+                events[-1].record()
+        with self._qlock:
+            self._held = (events, self._held[1] + [
+                f.slot for f in items if f.slot is not None])
 
     def _run(self) -> None:
         while not self._shutdown:
@@ -651,6 +835,7 @@ class FusionSession:
                               "dropped", len(items))
                 self._errors.append(e)
             finally:
+                self._hold(items)
                 self._busy = False
 
     def drain(self, timeout: float = 300.0) -> bool:
@@ -660,10 +845,16 @@ class FusionSession:
             deadline = time.monotonic() + timeout
             while time.monotonic() < deadline:
                 with self._qlock:
-                    empty = not self._queue
-                if empty and not self._busy:
+                    idle = not self._queue and not self._busy
+                    if idle:
+                        # the last dispatch's rows, released once the
+                        # device is done with it
+                        events, slots = self._held
+                        self._held = (events, [])
+                if idle:
                     for dev in self._cuda:
                         torch.cuda.synchronize(dev)
+                    self._release(slots)
                     return True
                 time.sleep(0.002)
             return False

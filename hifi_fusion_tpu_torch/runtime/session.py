@@ -16,20 +16,21 @@ contract:
   it asks ``pose_provider(frame)``; a lookup that raises drops the frame
   and counts it in ``pose_failures``.  Its record layout is checked
   (``decode.record_fields``) and its first ``max_points`` records are
-  copied as they arrived into a row of the staging ring; the worker cuts
-  it to ``max_points`` (counted in ``frames_truncated`` /
-  ``points_truncated``), fills the device batch from the rows and
-  integrates them through the planar frontend's record wire, kernel K5,
-  which decodes them on the card (``cloud_frames_card_decoded``).  The
-  TSDF family and sharded sessions decode on the host
-  (``decode.decode_frame``) into the planar f32 wire
-  (``cloud_frames_host_decoded``): kernel T2p, or routing and K5;
+  copied as they arrived into a staging row; the worker cuts it to
+  ``max_points`` (counted in ``frames_truncated`` /
+  ``points_truncated``) and fills the device batch from the rows.  A
+  single fusion grid integrates them through the planar frontend's record
+  wire, kernel K5, which decodes them on the card
+  (``cloud_frames_card_decoded``); the TSDF family and sharded sessions
+  decode each row's records on the host (``native.decode_xyzrgb``) into
+  the planar f32 wire (``cloud_frames_host_decoded``): kernel T2p, or
+  routing and K5;
 * ``run_source(source)`` pushes every ``(frame, pose)`` of a
   ``runtime/sources.Source`` and drains;
 * ``push_depth_frame(depth_q, rgb565, pose, rays)`` queues one frame
   (u16 z-depth, rgb565, camera pose; the (3,N) ray table on first use),
-  copied into a row of the staging ring; a frame wider than
-  ``max_points`` is cut and counted the same way;
+  copied into a staging row; a frame wider than ``max_points`` is cut and
+  counted the same way;
 * ``drain()`` waits until the queue is empty and the device is idle;
 * ``process(cloud_name, meta_name, ascii_mode, drain_timeout, variants,
   extra_fields)`` drains, runs the final refine, extracts, writes the
@@ -53,19 +54,19 @@ and mean in ``metrics()`` (``{total_s, count, mean_ms}``) and, while
 (``device_step``'s range is ``step``).  The spans split the stages:
 
 * ``batch_wait``: the worker asleep waiting for a K-batch to fill;
-* ``decode``, once a cloud dispatch: on the record wire the layout check
-  alone; on the host decode it holds ``decode.native`` / ``decode.pack``,
-  once a frame: the native decode, and the cut to ``max_points`` and copy
-  into the padded batch; ``decode.pack`` once more a batch, the zeroed
-  batch's allocation;
-* ``push.stage``, once a frame that takes a ring row, on the pushing
-  thread: the frame's bytes copied into its row;
+* ``decode``, once a cloud dispatch: on the record wire the count of the
+  cut to ``max_points`` alone (the layout was checked at push time); on
+  the host decode it holds ``decode.native`` / ``decode.pack``, once a
+  frame: the native decode of its row's records, and the cut counted and
+  their copy into the padded batch; ``decode.pack`` once more a batch,
+  the zeroed batch's allocation;
+* ``push.stage``, once a frame that takes a row of the session's ring, on
+  the pushing thread: the frame's bytes copied into its row;
 * ``device_step.stage`` / ``.upload`` / ``.launch`` (in ``device_step``),
-  once a dispatch: the host's staging of the batch (its ring rows grouped
-  into runs; without rows, the stacking of its arrays), its copies to
-  the device (from the rows, non-blocking; without rows, pageable
-  ``put``s, on the record wire each frame's records straight from its
-  message), the pipeline's step call;
+  once a dispatch: the host's staging of the batch (its rows grouped into
+  runs), its copies to the device (from the rows, non-blocking; on the
+  host decode the poses so, the decoded batch by ``put``), the
+  pipeline's step call;
 * ``refine.read`` (in ``refine``, or in ``device_step`` when a single
   step refines), once a pass of a single grid: the pass's one read of
   the device, which waits for the work queued before it;
@@ -90,21 +91,28 @@ mark and batched and single-stepped sessions refine at the same frames.
 With ``live_batching`` (a live source, after ``warm()``) a K-batch is
 popped only when the queue already holds one at a K-aligned frame
 number, with no wait: a backlog drains at the batched rate and a frame is
-never delayed.  A batch holds frames of one kind (clouds, or depth frames
-of one width).  With neither, every frame is stepped alone.  Before a
-dispatch the worker waits for the previous one's device work
-(``device_wait``), so the host runs at most one step ahead of the card.
+never delayed.  A batch holds frames of one kind and row layout (clouds
+of one point step, or depth frames of one width).  With neither, every
+frame is stepped alone.  Before a dispatch the worker waits for the
+previous one's device work (``device_wait``), so the host runs at most
+one step ahead of the card.
 
-The staging ring (``runtime/staging.py``) is allocated at the first
-pushed frame that can take a row and keeps that frame's layout for the
+Every queued frame is a staging row (``runtime/staging.py``), copied
+before ``push_*`` returns, so the caller may reuse its buffers at once.
+The session's ring is allocated at the first well-formed pushed frame,
+sharded sessions included, and keeps that frame's layout for the
 session's life, across ``reset()``: depth frames of that width, or
-records of that point step.  Its rows are pinned on a CUDA device and
-plain host memory on the CPU; there are ``queue_depth`` + 2 K + 1 of
+records of that point step.  Its rows are pinned on a CUDA device where
+they are copied to the card (depth, and a single fusion grid's records)
+and plain host memory otherwise; there are ``queue_depth`` + 2 K + 1 of
 them (the queue, the frame being pushed while a full queue still holds
 the frame it drops, and the two dispatches in flight), so a frame pushed
-from one thread always finds one.  Frames of another layout, clouds
-decoded on the host (the TSDF family) and sharded sessions take no row:
-the worker stacks and ``put``s them as they are.
+from one thread always finds one.  A frame of another layout, or one
+pushed while every row is held (by concurrent pushers), takes the one
+unpinned row of a ring of its own, outside ``push.stage``.  A frame that
+fails the push's checks (its record layout, a pose that is not (4,4),
+depth that is not 1-D or whose colour has another shape) takes no row:
+it is queued with its ValueError, which its dispatch raises.
 
 ``n_devices > 1`` runs the slab-sharded pipeline
 (``parallel/sharding.ShardedFusion``) behind the same contract, shard
@@ -137,7 +145,8 @@ from ..models.tsdf import TsdfConfig, TsdfPipeline
 from ..parallel.sharding import ShardedFusion, shard_devices
 from ..utils.profiling import StageTimers
 from . import native
-from .decode import CloudFrame, decode_frame, record_fields
+from . import staging
+from .decode import CloudFrame, record_fields
 from .sources import Source
 from .staging import StagingRing
 
@@ -151,15 +160,15 @@ STAGES = frozenset({"decode", "device_step", "device_wait", "refine",
 
 
 class _Frame(NamedTuple):
-    """A queued frame: ``kind`` "cloud" or "depth"; ``shape``, a cloud's
-    ``(n_points,)`` or the depth image's shape; ``data`` (the CloudFrame,
-    or the depth and rgb565 arrays) and ``pose`` as pushed, both None once
-    the frame is staged into its ring row ``slot``."""
+    """A queued frame: ``kind`` "cloud" or "depth"; ``n``, the points it
+    was pushed with; the row ``slot`` of ``ring`` it was copied into, or,
+    where the push's checks refused it, no ring and the ``error`` its
+    dispatch raises."""
     kind: str
-    shape: tuple
-    data: object
-    pose: Optional[np.ndarray]
-    slot: Optional[int]
+    n: int
+    ring: Optional[StagingRing]
+    slot: int = -1
+    error: Optional[ValueError] = None
 
 
 def batch_frames(config: FusionConfig) -> int:
@@ -216,17 +225,15 @@ class FusionSession:
         self._started = False
         self._busy = False
         self._errors = []          # failed dispatches into the current grid
-        # the CUDA events after the last dispatch and the ring rows it
-        # holds until they have fired
+        # the CUDA events after the last dispatch and the frames whose
+        # rows it holds until they have fired
         self._held = ([], [])
         # a single fusion grid decodes clouds on the card (K5's record
         # wire); the TSDF family and the shards take the host decode
         self._card_decode = isinstance(self.pipeline, FusionPipeline)
-        # the staging ring, made at the first frame that can take a row;
-        # a sharded session stages nothing
+        # the staging ring, made at the first well-formed frame
         self._ring = None
         self._ring_lock = threading.Lock()
-        self._stages = not isinstance(self.pipeline, ShardedFusion)
         self._cuda = [d for d in dict.fromkeys(
             getattr(self.pipeline, "devices", [self.pipeline.device]))
             if d.type == "cuda"]
@@ -256,7 +263,7 @@ class FusionSession:
     def reset(self, full: bool = False) -> None:
         self._started = False
         with self._qlock:
-            queued = [f.slot for f in self._queue]
+            queued = list(self._queue)
             self._queue.clear()
         self._release(queued)
         if full:
@@ -454,13 +461,8 @@ class FusionSession:
                 self._pose_failures += 1
                 log.warning("pose lookup failed, dropping frame: %s", e)
                 return False
-        pose = np.asarray(pose, np.float32)
-        shape = (frame.n_points,)
-        slot = self._stage_records(frame, pose) if self._card_decode \
-            else None
-        if slot is not None:    # the queue holds the row, not the message
-            frame = pose = None
-        self._enqueue(_Frame("cloud", shape, frame, pose, slot))
+        self._enqueue(self._stage_records(frame,
+                                          np.asarray(pose, np.float32)))
         return True
 
     def push_depth_frame(self, depth_q: np.ndarray, rgb565: np.ndarray,
@@ -476,14 +478,9 @@ class FusionSession:
             if rays is None:
                 raise ValueError("push_depth_frame needs rays on first call")
             self._rays = self.pipeline.put(np.asarray(rays, np.float32))
-        depth_q = np.asarray(depth_q, np.uint16)
-        rgb565 = np.asarray(rgb565, np.uint16)
-        pose = np.asarray(pose, np.float32)
-        slot = self._stage_depth(depth_q, rgb565, pose)
-        data = (depth_q, rgb565)
-        if slot is not None:    # the queue holds the row, not the arrays
-            data = pose = None
-        self._enqueue(_Frame("depth", depth_q.shape, data, pose, slot))
+        self._enqueue(self._stage_depth(np.asarray(depth_q, np.uint16),
+                                        np.asarray(rgb565, np.uint16),
+                                        np.asarray(pose, np.float32)))
         return True
 
     def run_source(self, source: Source, auto_start: bool = True) -> None:
@@ -504,50 +501,57 @@ class FusionSession:
                 gone = self._queue[0] if self._queue else item
             self._queue.append(item)
         if gone is not None:
-            self._release([gone.slot])
+            self._release([gone])
         self._wake.set()
 
     # -- staging ------------------------------------------------------------
-    def _stage(self, key: tuple, fields: Dict[str, tuple],
-               fill: Callable) -> Optional[int]:
-        """The ring row that ``fill(ring, slot)`` copied a frame of
-        layout ``key`` into (the span ``push.stage``), or None where the
-        frame takes no row: the session stages nothing, the ring holds
-        another layout, or every row is held.  The first frame that can
-        take a row makes the ring, with the rows ``fields`` gives."""
-        if not self._stages:
-            return None
+    def _stage(self, kind: str, n: int, key: tuple,
+               fields: Dict[str, tuple], fill: Callable) -> _Frame:
+        """The queued frame of ``kind`` and ``n`` points that ``fill(ring,
+        slot)`` copied into a row of layout ``key``: a row of the
+        session's ring (the span ``push.stage``) where it holds that
+        layout and a row is free, else the one row of a ring of the
+        frame's own, unpinned.  The first frame makes the session's ring,
+        with the rows ``fields`` gives, pinned on a CUDA device where the
+        rows are copied to the card: depth, and records K5 decodes (rows
+        the host decodes are never copied)."""
         if self._ring is None:
             with self._ring_lock:
                 if self._ring is None:
+                    pin = self.pipeline.device.type == "cuda" and (
+                        key[0] == "depth" or self._card_decode)
                     self._ring = StagingRing(
                         key, fields, self._queue.maxlen + 2 * self._kb + 1,
-                        pin=self.pipeline.device.type == "cuda")
+                        pin=pin)
                     log.info("staging ring: %d rows of %s, %.3f GB of host "
                              "memory", self._ring.rows, key,
                              self._ring.nbytes / 1e9)
         ring = self._ring
-        if ring.key != key:
-            return None
-        slot = ring.take()
+        slot = ring.take() if ring.key == key else None
         if slot is None:
-            return None
-        try:
-            with self.timers.stage("push.stage"):
-                fill(ring, slot)
-        except BaseException:
-            ring.release([slot])
-            raise
-        return slot
+            ring = StagingRing(key, fields, 1, pin=False)
+            slot = ring.take()
+            fill(ring, slot)
+        else:
+            try:
+                with self.timers.stage("push.stage"):
+                    fill(ring, slot)
+            except BaseException:
+                ring.release([slot])
+                raise
+        return _Frame(kind, n, ring, slot)
 
-    def _stage_depth(self, depth_q, rgb565, pose) -> Optional[int]:
+    def _stage_depth(self, depth_q, rgb565, pose) -> _Frame:
         """Stage a depth frame, cut to ``max_points``: its u16 depth,
-        rgb565 and pose (a 1-D image with its colour alike and a (4,4)
-        pose; anything else takes no row and meets the dispatch's checks
-        as pushed)."""
+        rgb565 and pose.  A frame that is not a 1-D image with its colour
+        alike and a (4,4) pose is queued with the ValueError its dispatch
+        raises."""
         if depth_q.ndim != 1 or rgb565.shape != depth_q.shape \
                 or pose.shape != (4, 4):
-            return None
+            return _Frame("depth", depth_q.size, None, error=ValueError(
+                f"a depth frame needs a 1-D image, its colour alike and a "
+                f"(4, 4) pose; got {depth_q.shape}, {rgb565.shape} and "
+                f"{pose.shape}"))
         n = min(depth_q.shape[0], self.config.max_points)
 
         def fill(ring, slot):
@@ -556,23 +560,24 @@ class FusionSession:
             ring.write(slot, "rgb", np.ascontiguousarray(rgb565[:n]), 2 * n)
             ring.write(slot, "pose", np.ascontiguousarray(pose), 64)
 
-        return self._stage(("depth", n), {"depth": ((n,), torch.uint16),
-                                          "rgb": ((n,), torch.uint16),
-                                          "pose": ((4, 4), torch.float32)},
-                           fill)
+        return self._stage("depth", depth_q.shape[0], ("depth", n),
+                           {"depth": ((n,), torch.uint16),
+                            "rgb": ((n,), torch.uint16),
+                            "pose": ((4, 4), torch.float32)}, fill)
 
-    def _stage_records(self, frame: CloudFrame, pose) -> Optional[int]:
-        """Stage a cloud for the record wire: its first ``max_points``
-        records, read in place from its message, its row of the frame
-        table (``_record_table``'s) and its pose.  A frame whose layout
-        check fails, or with another pose shape, takes no row, so the
-        dispatch refuses it as before."""
+    def _stage_records(self, frame: CloudFrame, pose) -> _Frame:
+        """Stage a cloud: its first ``max_points`` records, read in place
+        from its message, its row of the record wire's frame table
+        (``[kept, step, off_x, off_y, off_z, off_rgb]``) and its pose.  A
+        frame whose layout check fails, or with another pose shape, is
+        queued with the ValueError its dispatch raises."""
         try:
             n, step, *layout = record_fields(frame)
-        except ValueError:
-            return None
-        if pose.shape != (4, 4):
-            return None
+            if pose.shape != (4, 4):
+                raise ValueError(f"a cloud's pose must be (4, 4), not "
+                                 f"{pose.shape}")
+        except ValueError as e:
+            return _Frame("cloud", frame.n_points, None, error=e)
         cap = self.config.max_points
         kept = min(n, cap)
         table = np.array([kept, step, *layout], np.int32)
@@ -582,25 +587,26 @@ class FusionSession:
             ring.write(slot, "table", table, 24)
             ring.write(slot, "pose", np.ascontiguousarray(pose), 64)
 
-        return self._stage(("records", cap * step),
+        return self._stage("cloud", n, ("records", cap * step),
                            {"records": ((cap * step,), torch.uint8),
                             "table": ((6,), torch.int32),
                             "pose": ((4, 4), torch.float32)}, fill)
 
-    def _release(self, slots) -> None:
-        """Release the ring rows among ``slots`` (None: no row)."""
-        slots = [s for s in slots if s is not None]
-        if slots:
-            self._ring.release(slots)
+    @staticmethod
+    def _release(frames) -> None:
+        """Release the rows of ``frames``."""
+        for f in frames:
+            if f.ring is not None:
+                f.ring.release([f.slot])
 
     # -- worker -----------------------------------------------------------
     @staticmethod
     def _shape(item: _Frame):
-        """Frames batch together only when their shapes agree and all or
-        none of them are staged: a cloud is padded to ``max_points`` on
-        decode, a depth frame keeps its width."""
-        return (item.kind, item.slot is not None,
-                item.shape if item.kind == "depth" else ())
+        """Frames batch together only when their rows share a layout: a
+        cloud's record width, a depth frame's (cut) width.  A frame the
+        push refused batches with nothing."""
+        return (item.kind,
+                item.error if item.ring is None else item.ring.key)
 
     def _pop_items(self):
         """One frame, or a K-batch of frames of one kind and shape when it
@@ -657,12 +663,14 @@ class FusionSession:
         return min(n, cap)
 
     def _decode_planar(self, items):
-        """Host decode of K cloud frames into the planar wire: (K,3,N) f32
-        points and rgb padded to N = ``max_points`` and (K,) i32 count
-        prefixes (the ``decode`` stage: a frame's library decode,
-        ``decode.native``, and its repack into the padded batch,
-        ``decode.pack``; the zeroed batch is allocated first, in a
-        ``decode.pack`` of its own)."""
+        """Host decode of K cloud frames' rows into the planar wire:
+        (K,3,N) f32 points and rgb padded to N = ``max_points`` and (K,)
+        i32 count prefixes (the ``decode`` stage: a frame's library decode
+        of its row's kept records, ``decode.native``, and their repack
+        into the padded batch, ``decode.pack``; the zeroed batch is
+        allocated first, in a ``decode.pack`` of its own).  The decode is
+        per record, so the kept records decode as the whole message's
+        first ``max_points`` would."""
         N = self.config.max_points
         k = len(items)
         stage = self.timers.stage
@@ -671,114 +679,70 @@ class FusionSession:
             rgb = np.zeros((k, 3, N), np.float32)
             counts = np.zeros((k,), np.int32)
         for i, f in enumerate(items):
+            kept, *layout = f.ring.arrays["table"][f.slot].tolist()
             with stage("decode.native"):
-                xyz, col = decode_frame(
-                    f.data, blue_shift_bug=self.config.bug_compat_blue_shift)
+                xyz, col = native.decode_xyzrgb(
+                    f.ring.arrays["records"][f.slot].numpy(), kept, *layout,
+                    self.config.bug_compat_blue_shift)
             with stage("decode.pack"):
-                n = self._truncate(xyz.shape[0], 1, "frame")
-                pts[i, :, :n] = xyz[:n].T
-                rgb[i, :, :n] = col[:n].T
-                counts[i] = n
+                self._truncate(f.n, 1, "frame")
+                pts[i, :, :kept] = xyz.T
+                rgb[i, :, :kept] = col.T
+                counts[i] = kept
         return pts, rgb, counts
-
-    def _record_table(self, items):
-        """The record wire's (K,6) i32 frame table of K cloud frames
-        (``ops/integrate.record_frontend``), each frame's layout checked
-        and its count cut to ``max_points``, and the device batch's row
-        bytes (the ``decode`` stage)."""
-        table = np.empty((len(items), 6), np.int32)
-        for i, f in enumerate(items):
-            n, *layout = record_fields(f.data)
-            table[i] = [self._truncate(n, 1, "frame"), *layout]
-        return table, self.config.max_points * int(table[:, 1].max())
-
-    def _upload_records(self, items, table, row: int) -> torch.Tensor:
-        """Each frame's kept records, read in place from its message, into
-        its row of one (K, ``row``) u8 device batch; the bytes past them
-        are left as allocated."""
-        rec = torch.empty((len(items), row), dtype=torch.uint8,
-                          device=self.pipeline.device)
-        for i, f in enumerate(items):
-            nbytes = int(table[i, 0]) * int(table[i, 1])
-            if nbytes:
-                rec[i, :nbytes].copy_(torch.frombuffer(
-                    f.data.data, dtype=torch.uint8, count=nbytes))
-        return rec
 
     def _await_device(self) -> None:
         """Wait until the card has finished the previous dispatch, so the
         host runs at most one step ahead (on the CPU every op has finished
         when it returns, and there is nothing to wait for), then release
-        the ring rows it held."""
+        the rows it held."""
         with self._qlock:
-            events, slots = self._held
+            events, frames = self._held
             self._held = ([], [])
         with self.timers.stage("device_wait"):
             for event in events:
                 event.synchronize()
-        self._release(slots)
-
-    def _rows_batch(self, items):
-        """``(data, rgb, counts, poses)`` of a staged batch on the device,
-        filled from its ring rows with non-blocking copies: u16 depth and
-        rgb565 with a count a frame, or records (no ``rgb``) with the
-        frame table in the counts' place."""
-        ring = self._ring
-        k = len(items)
-        dev = self.pipeline.device
-        with self.timers.stage("device_step.stage"):
-            runs = ring.runs([f.slot for f in items])
-        with self.timers.stage("device_step.upload"):
-            b = ring.batch(runs, k, dev)
-            if "records" in b:
-                return b["records"], None, b["table"], b["pose"]
-            counts = torch.full((k,), b["depth"].shape[1],
-                                dtype=torch.int32, device=dev)
-            return b["depth"], b["rgb"], counts, b["pose"]
+        self._release(frames)
 
     def _dispatch(self, items) -> None:
+        if items[0].error is not None:
+            raise items[0].error
         cfg = self.config
         k = len(items)
-        put = self.pipeline.put
+        dev = self.pipeline.device
         stage = self.timers.stage
         cloud = items[0].kind == "cloud"
         records = cloud and self._card_decode
-        staged = items[0].slot is not None
         if records:
             with stage("decode"):
-                if staged:
-                    # the layout was checked and the frame table staged at
-                    # push time; the cut is counted here
-                    for f in items:
-                        self._truncate(f.shape[0], 1, "frame")
-                else:
-                    table, row = self._record_table(items)
+                # the layout was checked and the frame table staged at
+                # push time; the cut is counted here
+                for f in items:
+                    self._truncate(f.n, 1, "frame")
         elif cloud:
             with stage("decode"):
                 host = self._decode_planar(items)
         else:
-            n = self._truncate(items[0].shape[-1], k, "depth frame")
+            self._truncate(items[0].n, k, "depth frame")
         self._await_device()
         with stage("device_step"):
-            if staged:
-                data, rgb, counts, poses = self._rows_batch(items)
-            else:
-                # the host's work first, then every copy
-                with stage("device_step.stage"):
-                    poses = np.stack([f.pose for f in items])
-                    if not cloud:
-                        host = (np.stack([f.data[0][:n] for f in items]),
-                                np.stack([f.data[1][:n] for f in items]),
-                                np.full((k,), n, np.int32))
-                with stage("device_step.upload"):
-                    poses = put(poses)
-                    if records:
-                        # the records carry their colour; the frame table
-                        # takes the count prefix's place
-                        data = self._upload_records(items, table, row)
-                        rgb, counts = None, put(table)
-                    else:
-                        data, rgb, counts = map(put, host)
+            with stage("device_step.stage"):
+                runs = staging.runs([(f.ring, f.slot) for f in items])
+            with stage("device_step.upload"):
+                if records:
+                    # the records carry their colour; the frame table
+                    # takes the count prefix's place
+                    b = staging.batch(runs, k, dev)
+                    data, rgb, counts = b["records"], None, b["table"]
+                elif cloud:
+                    b = staging.batch(runs, k, dev, ("pose",))
+                    data, rgb, counts = map(self.pipeline.put, host)
+                else:
+                    b = staging.batch(runs, k, dev)
+                    data, rgb = b["depth"], b["rgb"]
+                    counts = torch.full((k,), data.shape[1],
+                                        dtype=torch.int32, device=dev)
+                poses = b["pose"]
             with stage("device_step.launch"), self._glock:
                 if cloud and k == 1:
                     self._grid = self.pipeline.step(
@@ -788,7 +752,7 @@ class FusionSession:
                     self._grid = self.pipeline.step_batch(
                         self._grid, data, rgb, counts, poses)
                 else:
-                    rays = self._rays[:, :n].contiguous()
+                    rays = self._rays[:, :data.shape[1]].contiguous()
                     if k == 1:
                         self._grid = self.pipeline.step_depth(
                             self._grid, data[0], rgb[0], counts[0],
@@ -808,17 +772,16 @@ class FusionSession:
 
     def _hold(self, items) -> None:
         """After a dispatch, failed or not: record the events that follow
-        its copies and launches, and hold its ring rows until they have
-        fired (with the previous dispatch's, where a failure came before
-        the wait for them)."""
+        its copies and launches, and hold its rows until they have fired
+        (with the previous dispatch's, where a failure came before the
+        wait for them)."""
         events = []
         for dev in self._cuda:
             with torch.cuda.device(dev):
                 events.append(torch.cuda.Event())
                 events[-1].record()
         with self._qlock:
-            self._held = (events, self._held[1] + [
-                f.slot for f in items if f.slot is not None])
+            self._held = (events, self._held[1] + list(items))
 
     def _run(self) -> None:
         while not self._shutdown:
@@ -849,12 +812,12 @@ class FusionSession:
                     if idle:
                         # the last dispatch's rows, released once the
                         # device is done with it
-                        events, slots = self._held
+                        events, frames = self._held
                         self._held = (events, [])
                 if idle:
                     for dev in self._cuda:
                         torch.cuda.synchronize(dev)
-                    self._release(slots)
+                    self._release(frames)
                     return True
                 time.sleep(0.002)
             return False

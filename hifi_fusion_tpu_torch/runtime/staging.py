@@ -1,14 +1,18 @@
-"""The session's staging ring: host rows that pushed frames are copied into.
+"""The session's staging rings: host rows that pushed frames are copied into.
 
-``FusionSession`` copies each pushed frame's bytes into a free row of one
-ring on the pushing thread (the span ``push.stage``), and its queue holds
-the row instead of the caller's arrays.  A dispatch allocates its device
-batch and fills it from the batch's rows with one asynchronous copy per
-array for each run of consecutive rows: one run, or two where the rows
-wrap round the ring's end.  On a CUDA device the rows are pinned, so the
-copies are DMA on the compute stream, in stream order after the previous
-dispatch's kernels, and return at once; on the CPU they are plain host
-rows through the same code.
+``FusionSession`` copies every pushed frame's bytes into a row of a ring on
+the pushing thread, and its queue holds the ``(ring, row)`` pair instead
+of the caller's objects.  Most frames take a free row of the session's
+ring (the span ``push.stage``); a frame of another layout, or one pushed
+while every row is held, takes the one row of a ring of its own.  A
+dispatch allocates its device batch and fills it from the batch's rows
+with one asynchronous copy per array for each run of consecutive rows of
+one ring (``runs``, ``batch``): one run, or two where the rows wrap round
+the ring's end.  Where the rows are pinned (the session's ring on a CUDA
+device, for the arrays copied to the card), the copies are DMA on the
+compute stream, in stream order after the previous dispatch's kernels,
+and return at once; elsewhere they are plain host rows through the same
+code.
 
 A row is taken on the pushing thread and released when its frame is
 dropped from the queue or reset away, or once the events recorded after
@@ -20,7 +24,7 @@ order hold consecutive rows; any free row serves when they do not.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,26 +78,32 @@ class StagingRing:
             row[:nbytes].copy_(torch.frombuffer(src, dtype=torch.uint8,
                                                 count=nbytes))
 
-    @staticmethod
-    def runs(slots: List[int]) -> List[Tuple[int, int, int]]:
-        """``(batch row, ring row, length)`` of each run of consecutive
-        ring rows in ``slots``."""
-        out = []
-        for i, s in enumerate(slots):
-            if out and s == out[-1][1] + out[-1][2]:
-                b, r, n = out[-1]
-                out[-1] = (b, r, n + 1)
-            else:
-                out.append((i, s, 1))
-        return out
 
-    def batch(self, runs, k: int, device) -> Dict[str, torch.Tensor]:
-        """The (k, ...) device batch of every array, each filled from the
-        ring's rows with one non-blocking copy a run."""
-        out = {}
-        for name, a in self.arrays.items():
-            t = torch.empty((k, *a.shape[1:]), dtype=a.dtype, device=device)
-            for b, r, n in runs:
-                t[b:b + n].copy_(a[r:r + n], non_blocking=True)
-            out[name] = t
-        return out
+def runs(rows: Sequence[Tuple[StagingRing, int]]
+         ) -> List[Tuple[int, StagingRing, int, int]]:
+    """``(batch row, ring, ring row, length)`` of each run of consecutive
+    rows of one ring in ``rows``, ``(ring, row)`` pairs."""
+    out = []
+    for i, (ring, s) in enumerate(rows):
+        if out and out[-1][1] is ring and s == out[-1][2] + out[-1][3]:
+            b, _, r, n = out[-1]
+            out[-1] = (b, ring, r, n + 1)
+        else:
+            out.append((i, ring, s, 1))
+    return out
+
+
+def batch(runs, k: int, device, names: Sequence[str] = None
+          ) -> Dict[str, torch.Tensor]:
+    """The (k, ...) device batch of each array ``names`` lists (default:
+    every array) of the runs' rings, which share one layout, filled from
+    their rows with one non-blocking copy a run."""
+    arrays = runs[0][1].arrays
+    out = {}
+    for name in names or arrays:
+        a = arrays[name]
+        t = torch.empty((k, *a.shape[1:]), dtype=a.dtype, device=device)
+        for b, ring, r, n in runs:
+            t[b:b + n].copy_(ring.arrays[name][r:r + n], non_blocking=True)
+        out[name] = t
+    return out

@@ -494,3 +494,21 @@ def test_malformed_clouds_raise_and_drop():
     assert m["dispatch_errors"] == 3
     assert all(isinstance(e, ValueError) for e in errors)
     assert m["frames_integrated"] == m["cloud_frames_card_decoded"] == 1
+
+
+def test_malformed_depth_raises_and_drops():
+    """A depth frame whose colour is shorter, and one whose colour is
+    longer, than its image fail their dispatch with the push's ValueError
+    and are dropped; the session goes on with the next frame."""
+    f = DEPTH[0]
+    bad = [f.rgb565[:-8], np.concatenate([f.rgb565, f.rgb565[:8]])]
+    with FusionSession(SCFG, "cpu") as s:
+        s.start()
+        for rgb in bad + [f.rgb565]:
+            assert s.push_depth_frame(f.depth_q, rgb, f.pose, rays=RAYS)
+        assert s.drain(600)
+        m = s.metrics()
+        errors = list(s._errors)
+    assert m["dispatch_errors"] == 2
+    assert all(isinstance(e, ValueError) for e in errors)
+    assert m["frames_integrated"] == 1

@@ -1,13 +1,15 @@
-"""The session's staging ring (``runtime/staging.py``): each pushed frame
-copied into a ring row at push time, each dispatch filled from its rows.
+"""The session's staging rings (``runtime/staging.py``): each pushed frame
+copied into a row at push time, each dispatch filled from its rows.
 
-On the CPU (the ring's plain host rows), for the depth wire and the record
-wire, single-stepped (K=1) and K-batched (K=8):
+On the CPU (plain host rows), for the depth wire and the record wire,
+single-stepped (K=1) and K-batched (K=8), and K-batched on the paths that
+took no row before every queued frame was a row (clouds a TSDF session or
+a routed sharded session decodes on the host, a replicated sharded depth
+session, depth frames of a second width):
 
 * the caller's arrays and buffers may change the moment ``push_*``
-  returns: the grid is the one ``pipeline.step_depth`` /
-  ``step_batch_depth`` / ``step`` / ``step_batch`` give on the frames as
-  pushed;
+  returns: the grid is the one the pipeline's own steps give on the
+  frames as pushed;
 * a full queue drops its oldest frame, counts it in
   ``frames_dropped_backpressure`` and releases its row, so pushing three
   queues' worth of frames past a stalled worker finds a row for every
@@ -15,11 +17,15 @@ wire, single-stepped (K=1) and K-batched (K=8):
 * ``reset()`` releases the queued frames' rows at once and ``drain()`` the
   last dispatch's; the ring survives ``reset(full=True)`` and the next
   scan through it gives the direct calls' grid;
-* the paths that take no row are unchanged: clouds a TSDF session decodes
-  on the host (the grid of direct planar steps, no ``push.stage``), a
-  sharded session, and frames of another layout than the ring's;
-* the ring hands no row out twice under threads that take and release at
-  once.
+* a TSDF session's clouds and a sharded session's depth frames take rows
+  of the session's ring, and frames of another layout than the ring's
+  one-row rings of their own, outside ``push.stage``; each integrates as
+  the direct calls;
+* with every row of the session's ring held, each frame pushed takes a
+  one-row ring of its own and integrates as the direct calls;
+* a batch is filled by one copy a run of consecutive rows of one ring,
+  across rings; the ring hands no row out twice under threads that take
+  and release at once.
 
 On the card (marked ``cuda``; run there with ``python -m pytest -m cuda
 --noconftest tests/test_torch_session_ring.py``), for the depth and record
@@ -48,6 +54,9 @@ from hifi_fusion_tpu_torch import checks
 from hifi_fusion_tpu_torch.config import small_test_config
 from hifi_fusion_tpu_torch.models.pipeline import FusionPipeline, refine_due
 from hifi_fusion_tpu_torch.models.tsdf import TsdfConfig, TsdfPipeline
+from hifi_fusion_tpu_torch.parallel.sharding import (ShardedFusion,
+                                                     shard_devices)
+from hifi_fusion_tpu_torch.runtime import staging
 from hifi_fusion_tpu_torch.runtime.decode import (CloudFrame, decode_frame,
                                                   make_cloud_frame,
                                                   record_fields)
@@ -69,6 +78,17 @@ CLOUDS = [(make_cloud_frame(f.points_cam, f.rgb), f.pose)
 TSDF = {"truncation": 0.03, "n_samples": 5, "min_weight": 1.0}
 CASES = [(w, k) for w in ("depth", "records") for k in (1, 8)]
 IDS = [f"{w}-K{k}" for w, k in CASES]
+# each path: the session's keywords and the wire it pushes
+PATHS = {
+    "depth": ({}, "depth"),
+    "records": ({}, "records"),
+    "tsdf-clouds": ({"model": "tsdf", "model_params": TSDF}, "records"),
+    "sharded-depth": ({"n_devices": 2}, "depth"),
+    "routed-clouds": ({"n_devices": 2, "route": True}, "records"),
+    "other-width": ({}, "depth"),
+}
+REUSE = CASES + [(p, 8) for p in ("tsdf-clouds", "sharded-depth",
+                                  "routed-clouds", "other-width")]
 
 
 def _session(k, **kw):
@@ -152,24 +172,106 @@ def _equal(a, b):
         np.testing.assert_array_equal(a[name], b[name], err_msg=name)
 
 
+def _cut(f, n):
+    """A depth frame's first ``n`` pixels."""
+    return dataclasses.replace(f, depth_q=f.depth_q[:n].copy(),
+                               rgb565=f.rgb565[:n].copy(), count=n)
+
+
+def _sweep(path):
+    """The frames a path pushes: "other-width" pushes its last eight at
+    half the width of the first eight, which make the session's ring."""
+    if path == "other-width":
+        return DEPTH[:8] + [_cut(f, W * H // 2) for f in DEPTH[8:]]
+    return DEPTH if PATHS[path][1] == "depth" else CLOUDS
+
+
+def _planar_direct(pipe):
+    """The clouds host-decoded into the planar wire, 8 frames a
+    ``step_batch`` of ``pipe`` and a refine where a mark falls."""
+    g = pipe.init()
+    N = CFG.max_points
+    for i in range(0, N_FRAMES, 8):
+        pts = np.zeros((8, 3, N), np.float32)
+        rgb = np.zeros((8, 3, N), np.float32)
+        counts = np.zeros((8,), np.int32)
+        for j, (frame, _) in enumerate(CLOUDS[i:i + 8]):
+            xyz, col = decode_frame(frame)
+            n = xyz.shape[0]
+            pts[j, :, :n], rgb[j, :, :n], counts[j] = xyz.T, col.T, n
+        poses = np.stack([p for _, p in CLOUDS[i:i + 8]])
+        g = pipe.step_batch(g, *map(pipe.put, (pts, rgb, counts, poses)))
+        if refine_due(i + 8, 8, CFG):
+            g = pipe.refine(g)
+    return g
+
+
+def _reference(path, k):
+    """The grid of the direct calls that a session on ``path`` makes."""
+    kw, wire = PATHS[path]
+    if path == "tsdf-clouds":
+        pipe = TsdfPipeline(TsdfConfig(base=CFG, **TSDF), "cpu")
+    elif "n_devices" in kw:
+        pipe = ShardedFusion(CFG, shard_devices("cpu", kw["n_devices"]),
+                             route=kw.get("route", False))
+    else:
+        pipe = FusionPipeline(CFG, "cpu")
+    if wire == "records" and path != "records":
+        g = _planar_direct(pipe)
+    elif path == "other-width":
+        frames = _sweep(path)
+        g = _direct(pipe, wire, k, frames[:8])
+        g = _direct(pipe, wire, k, frames[8:], grid=g,
+                    rays=pipe.put(RAYS[:, :W * H // 2]))
+    else:
+        g = _direct(pipe, wire, k)
+    return pipe.host_state(g)
+
+
 @pytest.fixture(scope="module")
 def direct():
-    pipe = FusionPipeline(CFG, "cpu")
-    return {(w, k): pipe.host_state(_direct(pipe, w, k)) for w, k in CASES}
+    """``direct(path, k)``: the direct calls' grid, made once a module."""
+    made = {}
+
+    def get(path, k):
+        if (path, k) not in made:
+            made[path, k] = _reference(path, k)
+        return made[path, k]
+
+    return get
 
 
-@pytest.mark.parametrize("wire,k", CASES, ids=IDS)
-def test_caller_may_reuse_its_buffers(direct, wire, k):
-    with _session(k) as s:
+def _scan(path, k, scribble=False):
+    """The path's 16 frames through a session: its grid, its metrics, its
+    ring and each dispatch's ``(ring, row)`` pairs."""
+    kw, wire = PATHS[path]
+    frames = _sweep(path)
+    rows = []
+    with _session(k, **kw) as s:
+        dispatch = s._dispatch
+
+        def spy(items):
+            rows.append([(f.ring, f.slot) for f in items])
+            return dispatch(items)
+
+        s._dispatch = spy
         s.start()
         for i in range(N_FRAMES):
-            _push(s, wire, i, scribble=True)
+            _push(s, wire, i, scribble, depth=frames, clouds=frames)
         assert s.drain(300)
         m = s.metrics()
         got = s.pipeline.host_state(s._grid)
+        ring = s._ring
+    return got, m, ring, rows
+
+
+@pytest.mark.parametrize("wire,k", REUSE, ids=[f"{p}-K{k}" for p, k in REUSE])
+def test_caller_may_reuse_its_buffers(direct, wire, k):
+    got, m, _, _ = _scan(wire, k, scribble=True)
     assert m["frames_integrated"] == N_FRAMES and m["dispatch_errors"] == 0
-    assert m["spans"]["push.stage"]["count"] == N_FRAMES
-    _equal(got, direct[wire, k])
+    _equal(got, direct(wire, k))
+    assert m["spans"]["push.stage"]["count"] == \
+        (8 if wire == "other-width" else N_FRAMES)
 
 
 @pytest.mark.parametrize("wire,k", CASES, ids=IDS)
@@ -185,7 +287,7 @@ def test_session_equals_direct_steps(direct, wire, k):
     assert ring.key[0] == wire and ring.rows == 100 + 2 * k + 1
     assert m["stage_timers"]["device_step"]["count"] == N_FRAMES // k
     assert m["spans"]["device_step.upload"]["count"] == N_FRAMES // k
-    _equal(got, direct[wire, k])
+    _equal(got, direct(wire, k))
 
 
 def _stage_count(s):
@@ -238,93 +340,79 @@ def test_reset_releases_rows_and_keeps_the_ring(direct, wire, k):
         assert s.drain(300)
         assert s._ring is ring and ring.in_use() == 0
         got = s.pipeline.host_state(s._grid)
-    _equal(got, direct[wire, k])
-
-
-def _cut(f, n):
-    """A depth frame's first ``n`` pixels."""
-    return dataclasses.replace(f, depth_q=f.depth_q[:n].copy(),
-                               rgb565=f.rgb565[:n].copy(), count=n)
-
-
-def _planar_direct():
-    """The clouds host-decoded into the planar wire, 8 frames a
-    ``step_batch`` of the TSDF pipeline."""
-    pipe = TsdfPipeline(TsdfConfig(base=CFG, **TSDF), "cpu")
-    g = pipe.init()
-    N = CFG.max_points
-    for i in range(0, N_FRAMES, 8):
-        pts = np.zeros((8, 3, N), np.float32)
-        rgb = np.zeros((8, 3, N), np.float32)
-        counts = np.zeros((8,), np.int32)
-        for j, (frame, _) in enumerate(CLOUDS[i:i + 8]):
-            xyz, col = decode_frame(frame)
-            n = xyz.shape[0]
-            pts[j, :, :n], rgb[j, :, :n], counts[j] = xyz.T, col.T, n
-        poses = np.stack([p for _, p in CLOUDS[i:i + 8]])
-        g = pipe.step_batch(g, *map(pipe.put, (pts, rgb, counts, poses)))
-    return pipe.host_state(g)
+    _equal(got, direct(wire, k))
 
 
 @pytest.mark.parametrize("path", ["tsdf-clouds", "sharded-depth",
                                   "other-width"])
-def test_paths_without_a_row_are_unchanged(tmp_path, path):
-    if path == "tsdf-clouds":
-        with _session(8, model="tsdf", model_params=TSDF) as s:
-            s.start()
-            for i in range(N_FRAMES):
-                _push(s, "records", i)
-            assert s.drain(300)
-            m = s.metrics()
-            got = s.pipeline.host_state(s._grid)
-        _equal(got, _planar_direct())
-        assert m["cloud_frames_host_decoded"] == N_FRAMES
-        assert s._ring is None
-    elif path == "sharded-depth":
-        with _session(8, n_devices=2) as s:
-            s.start()
-            for i in range(N_FRAMES):
-                _push(s, "depth", i)
-            assert s.drain(300)
-            m = s.metrics()
-        assert s._ring is None
-    else:
-        # the ring keeps the first frame's width; narrower frames are
-        # stacked and put as they are, and integrate alike
-        half = [_cut(f, W * H // 2) for f in DEPTH]
-        pipe = FusionPipeline(CFG, "cpu")
-        with _session(8) as s:
-            s.start()
-            for i in range(8):
-                _push(s, "depth", i)
-            for i in range(8):
-                _push(s, "depth", i, depth=half)
-            assert s.drain(300)
-            m = s.metrics()
-            got = s.pipeline.host_state(s._grid)
-            assert s._ring.key == ("depth", W * H)
-        g = pipe.init()
-        rays = pipe.put(RAYS)
-        for fs in (DEPTH[:8], half[:8]):
-            n = fs[0].depth_q.shape[0]
-            g = pipe.step_batch_depth(
-                g, *map(pipe.put, (np.stack([f.depth_q for f in fs]),
-                                   np.stack([f.rgb565 for f in fs]),
-                                   np.full((8,), n, np.int32),
-                                   np.stack([f.pose for f in fs]))),
-                rays[:, :n].contiguous())
-            g = pipe.refine(g)
-        _equal(got, pipe.host_state(g))
-        assert m["spans"]["push.stage"]["count"] == 8
+def test_paths_without_a_row_are_unchanged(direct, path):
+    """The paths that took no row before every queued frame was a row: a
+    TSDF session's clouds (decoded on the host) and a sharded session's
+    depth frames now take rows of the session's ring; depth frames of
+    another width than the ring's one-row rings of their own, which
+    ``push.stage`` does not count.  Each grid is the direct calls'."""
+    got, m, ring, rows = _scan(path, 8)
     assert m["frames_integrated"] == N_FRAMES and m["dispatch_errors"] == 0
-    if path != "other-width":
-        assert "push.stage" not in m["spans"]
+    _equal(got, direct(path, 8))
+    assert ring.rows == 100 + 2 * 8 + 1
+    assert [len(b) for b in rows] == [8, 8]
+    if path == "other-width":
+        assert ring.key == ("depth", W * H)
+        assert all(r is ring for r, _ in rows[0])
+        own = [r for r, _ in rows[1]]
+        assert len({id(r) for r in own}) == 8
+        assert all(r.rows == 1 and r.key == ("depth", W * H // 2)
+                   for r in own)
+    else:
+        assert all(r is ring for b in rows for r, _ in b)
+        assert ring.key == (("depth", W * H) if path == "sharded-depth"
+                            else ("records", CFG.max_points * 16))
+    assert m["spans"]["push.stage"]["count"] == \
+        (8 if path == "other-width" else N_FRAMES)
+    if path == "tsdf-clouds":
+        assert m["cloud_frames_host_decoded"] == N_FRAMES
+
+
+def test_frames_pushed_while_every_row_is_held(direct):
+    """Every row of the session's ring held by hand, as pushers on other
+    threads would hold them: each frame pushed takes a one-row ring of its
+    own outside ``push.stage``, may be overwritten once pushed, and
+    integrates as the direct calls."""
+    with _session(8) as s:
+        s.start()
+        with s._glock:              # the worker stalls in its first launch
+            _push(s, "depth", 0)
+            ring = s._ring
+            held = []
+            while (slot := ring.take()) is not None:
+                held.append(slot)
+            for i in range(1, N_FRAMES):
+                _push(s, "depth", i, scribble=True)
+        assert s.drain(300)
+        assert ring.in_use() == len(held) == ring.rows - 1
+        ring.release(held)
+        m = s.metrics()
+        got = s.pipeline.host_state(s._grid)
+    assert m["frames_integrated"] == N_FRAMES and m["dispatch_errors"] == 0
+    assert m["spans"]["push.stage"]["count"] == 1
+    _equal(got, direct("depth", 8))
 
 
 def test_ring_runs():
-    assert StagingRing.runs([5, 6, 7, 8]) == [(0, 5, 4)]
-    assert StagingRing.runs([9, 10, 0, 1]) == [(0, 9, 2), (2, 0, 2)]
-    assert StagingRing.runs([3, 1]) == [(0, 3, 1), (1, 1, 1)]
+    a = StagingRing(("t",), {"x": ((2,), torch.int32)}, 12, pin=False)
+    b = StagingRing(("t",), {"x": ((2,), torch.int32)}, 1, pin=False)
+    assert staging.runs([(a, s) for s in (5, 6, 7, 8)]) == [(0, a, 5, 4)]
+    assert staging.runs([(a, s) for s in (9, 10, 0, 1)]) == \
+        [(0, a, 9, 2), (2, a, 0, 2)]
+    assert staging.runs([(a, 3), (a, 1)]) == [(0, a, 3, 1), (1, a, 1, 1)]
+    # a run never spans two rings; one batch takes rows of both
+    rows = [(a, 4), (b, 0), (a, 5), (a, 6)]
+    runs = staging.runs(rows)
+    assert runs == [(0, a, 4, 1), (1, b, 0, 1), (2, a, 5, 2)]
+    a.arrays["x"].copy_(torch.arange(24).view(12, 2))
+    b.arrays["x"].fill_(-1)
+    got = staging.batch(runs, 4, "cpu")["x"]
+    assert got.tolist() == [[8, 9], [-1, -1], [10, 11], [12, 13]]
 
 
 def test_ring_hands_no_row_out_twice():

@@ -75,7 +75,14 @@ and prints no result line):
    cell; the same on five edge cases of seeded lanes (a run of over 1024
    lanes over three ladder blocks, one over ~78 blocks, runs across every
    block edge, M <= 1024 under and over U); its counts, bound, share and
-   device ms by kernel;
+   device ms by kernel; T5 (``tsdf.sort_lanes``) on that batch's ids at
+   TSDF config 5 and at the benchmark's TSDF configuration
+   (``fusionbench/configs/tsdf512-open3d-recon.json``, the same frames
+   through T2 there), equal to ``torch.sort(stable=True)`` id for id and
+   index for index with its pass counter the passes the batch's distinct
+   ids need, timed beside its plain version and ``torch.sort`` alone
+   (the library yardstick), with its bound, share and device ms by
+   kernel;
 4. the fusion path: a bench-config ``FusionSession`` replay (640x480 depth
    frames, fx=900, 1 mm pitch, K=8 batches, a refine every 8 frames) of a
    seeded sweep, a ``save_state`` of its grid, then ``process()`` with the
@@ -246,6 +253,8 @@ KERNELS = {
                       "hifi_fusion_tpu/ops/refine.py:341"),
     "tsdf_reduce": ("hifi_fusion_tpu_torch/csrc/tsdf_reduce.cu",
                     "hifi_fusion_tpu/models/tsdf.py:135"),
+    "tsdf_sort": ("hifi_fusion_tpu_torch/csrc/tsdf_sort.cu",
+                  "hifi_fusion_tpu/models/tsdf.py:147"),
 }
 # the kernels of the fusion family's integrate and refine, on every path
 # that fuses (B3, B6, B7 around K2, K3, K4)
@@ -257,14 +266,15 @@ FUSION_PATH = ("depth_frontend",) + FUSION_STEPS
 PLANAR_PATH = ("record_frontend",) + FUSION_STEPS
 # (T4 runs P2's segment ladder itself, so T1 launches in phase 3's own
 # check only)
-TSDF_PATH = ("tsdf_lanes", "tsdf_reduce", "hash_insert", "tsdf_surface")
-TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "tsdf_reduce", "hash_insert",
-                    "tsdf_surface")
+TSDF_PATH = ("tsdf_lanes", "tsdf_sort", "tsdf_reduce", "hash_insert",
+             "tsdf_surface")
+TSDF_PLANAR_PATH = ("tsdf_lanes_planar", "tsdf_sort", "tsdf_reduce",
+                    "hash_insert", "tsdf_surface")
 QUERY_PATH = ("neighbor_count",)
 # the routed sharded path: B12 routes, K5 takes the routed world points
 ROUTED_PATH = ("route_pack", "planar_frontend") + FUSION_STEPS
 CLI_PATH = ("depth_frontend", "record_frontend", "tsdf_lanes_planar",
-            "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
+            "tsdf_sort", "tsdf_reduce", "tsdf_surface") + FUSION_STEPS
 # the reference's download* views (OccupancyGrid.hpp:491-601)
 VARIANTS = ("hq", "classified", "xyzrgb", "normals")
 # an extract fetched in two waves, as an export takes it: the CSV's
@@ -960,9 +970,17 @@ def check_tsdf_kernels(torch, tcfg, frames, clouds, rays, dev):
         K, tcfg.base.max_points, tcfg.n_samples))
     del wire
 
-    # T1: bit-exact for every kind, on the batch's sorted lanes and on a
-    # flat-ladder prefix (n <= 1024)
-    sid, order = tsdf.sort_lanes(lanes[0])
+    # T5 on the batch's ids at config 5 and at the benchmark's TSDF
+    # configuration (the same frames through T2 there); T1: bit-exact for
+    # every kind, on the batch's sorted lanes and on a flat-ladder prefix
+    # (n <= 1024)
+    sorts = {"config5": check_tsdf_sort(torch, tcfg, lanes[0], "config5")}
+    ccfg = cell_tsdf_config(type(tcfg.base), type(tcfg))
+    cell_key = tsdf.tsdf_lanes(*b2, rays, ccfg)[0]
+    sorts["tsdf512"] = check_tsdf_sort(torch, ccfg, cell_key, "tsdf512")
+    res["tsdf_sort"] = {**sorts["tsdf512"], "shapes": sorts}
+    del cell_key
+    sid, order = tsdf.sort_lanes(lanes[0], tcfg.base.n_cells)
     vals6 = lanes[1]
     svals = vals6[:, order]
     del lanes
@@ -1093,7 +1111,8 @@ def check_tsdf_reduce(torch, tcfg, grid, sid, order, vals6) -> dict:
                       checks.tsdf_reduce_case(n_cells, m, seed=7,
                                               n_valid=n_valid,
                                               run_lanes=run))
-        s, o = tsdf.sort_lanes(skey)
+        # the cases' ids lie in [0, 2^20)
+        s, o = tsdf.sort_lanes(skey, 1 << 20)
         problems = t4_problems(torch, tcfg, grid, s, o, vals, u)[0]
         if problems:
             raise AssertionError(f"tsdf_reduce, {name}: {problems}")
@@ -1112,6 +1131,54 @@ def check_tsdf_reduce(torch, tcfg, grid, sid, order, vals6) -> dict:
     return {**timed(0.0, ms, pms, bounds.tsdf_reduce(
         M, n_live, counts["n_new"], counts["n_placed"])), **counts,
         "passes_ms": split}
+
+
+def cell_tsdf_config(FusionConfig, TsdfConfig):
+    """The benchmark's TSDF configuration (``fusionbench/configs/
+    tsdf512-open3d-recon.json``): 3 m / 512 voxels over the launch-file
+    extent on one grid, 15 samples across +-4 cm, K=8."""
+    cfg = json.loads((ROOT / "fusionbench" / "configs"
+                      / "tsdf512-open3d-recon.json").read_text())
+    base = FusionConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in cfg["fusion_config"].items()})
+    return TsdfConfig(base=base.validate(), **cfg["model_params"])
+
+
+def check_tsdf_sort(torch, tcfg, skey, shape) -> dict:
+    """Phase 3, T5 (``tsdf.sort_lanes``) on a batch's sample ids
+    ``skey``, with tables kept between sorts as a grid keeps them: equal
+    to its plain version (``torch.sort(stable=True)``, the order cast to
+    i32) id for id and index for index, its counts one batch, the passes
+    the batch's D distinct ids need and no lane out of range; the
+    ``timed`` entry with D, the passes, ``torch.sort``'s own time (the
+    library yardstick) and the device ms by kernel."""
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.models import tsdf
+    n_cells = tcfg.base.n_cells
+    tables = tsdf.SortTables(n_cells, skey.device)
+    got = tsdf.sort_lanes(skey, n_cells, tables)
+    counted = tables.counts.tolist()
+    want = tsdf.sort_lanes_plain(skey)
+    D = int(torch.unique(skey[skey != tsdf.BIG]).numel())
+    passes = bounds.tsdf_sort_passes(D)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"tsdf_sort {shape}: differs from torch.sort")
+    if counted != [1, passes, 0]:
+        raise AssertionError(f"tsdf_sort {shape}: counted {counted}, D {D} "
+                             f"needs {passes} passes")
+    del got, want
+    M = skey.numel()
+    ms, pms = time_pair(torch, lambda: tsdf.sort_lanes(skey, n_cells,
+                                                       tables),
+                        lambda: tsdf.sort_lanes_plain(skey), tuple)
+    lib_ms = device_ms(torch, lambda: torch.sort(skey, stable=True), tuple)
+    split = kernel_split(torch, tsdf.sort_lanes,
+                         lambda: (skey, n_cells, tables))
+    log(f"phase 3: tsdf_sort {shape}: {M} lanes, D {D}, {passes} passes, "
+        f"exact against torch.sort; {ms:.4f} ms, torch.sort {lib_ms:.4f} "
+        f"ms; by kernel, ms: {json.dumps(split)}")
+    return {**timed(0.0, ms, pms, bounds.tsdf_sort(M), lib_ms), "M": M,
+            "D": D, "passes": passes, "passes_ms": split}
 
 
 def tsdf_sync_reads(torch, tcfg, frames, clouds, rays_np, wire) -> int:

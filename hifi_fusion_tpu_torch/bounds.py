@@ -199,6 +199,22 @@ def route_pack(K: int, N: int, n: int, Bs: int, wire: str = "depth",
     return bound(wire_bytes + K * n * n * Bs * 25, 30 * px)
 
 
+def tsdf_sort_passes(D: int) -> int:
+    """The 8-bit passes T5 runs over the dense ranks of a batch with D
+    distinct ids (ranks 0 to D, D for an invalid lane)."""
+    return 1 if D < 1 << 8 else 2 if D < 1 << 16 else 3 if D < 1 << 24 \
+        else 4
+
+
+def tsdf_sort(M: int) -> dict:
+    """T5 on M sample lanes: the least the function moves, each id read
+    (4 B) and its sorted id and i32 order written (8 B), 12 B a lane.
+    T5's design moves more (the ids read again by the histogram sweep,
+    the ranks written, and each pass's pairs read and written: PERF.md
+    §6).  No f32 operation."""
+    return bound(M * (4 + 8))
+
+
 def tsdf_reduce(M: int, n_live: int, n_new: int, n_placed: int) -> dict:
     """T4 on M sorted sample lanes whose first ``n_live`` runs are kept:
     per lane its sorted id (4 B), its order word (8 B) and its six values

@@ -15,21 +15,24 @@
 // ladder and compacts with two torch.nonzero calls and a count, each a
 // read back to the host; here every count stays on the card.
 //
-// Input: the M sorted ids (INVALID_ID = INT32_MAX last), the sort's i64
-// order and the (6, M) channels in the sample map's lane order.
+// Input: the M sorted ids (INVALID_ID = INT32_MAX last), the sort's i32
+// order (kernel T5, tsdf_sort.cu) and the (6, M) channels in the sample
+// map's lane order.
 //
 // Bound on the card: memory.  Each lane's sorted id (4 B) and order word
-// (8 B) are read once and its six values through the order (24 B); per
+// (4 B) are read once and its six values through the order (24 B); per
 // kept run its key probe (K2), per new cell its key written, per placed
-// cell its six vstats words read and written (48 B): bounds.tsdf_reduce,
-// ~1.04 GB at phase 3's shape.  The six values are the one random stream:
-// a 4-byte word of a 32-byte sector in each of six planes, whose
-// neighbours in the sector other lanes of nearby runs may want, so the
-// sectors that miss the L2, not the bytes counted, hold the runs pass
-// (timed with kernel_ab.py: the same pass reading the planes in lane
-// order instead of through the order takes about a third of the time,
-// and gathering all six channels from one plane about 0.7 of it).  No
-// tensor cores: there is no product.
+// cell its six vstats words read and written (48 B).  bounds.tsdf_reduce
+// (~1.04 GB at phase 3's shape), like the benchmark's frozen copy of it,
+// still counts an 8-byte order word, the i64 order T4 read before T5, so
+// it overstates these bytes by 4 of 36 B a lane.  The six values are the
+// one random stream: a 4-byte word of a 32-byte sector in each of six
+// planes, whose neighbours in the sector other lanes of nearby runs may
+// want, so the sectors that miss the L2, not the bytes counted, hold the
+// runs pass (timed with kernel_ab.py: the same pass reading the planes in
+// lane order instead of through the order takes about a third of the
+// time, and gathering all six channels from one plane about 0.7 of it).
+// No tensor cores: there is no product.
 //
 // What the design does about the bound: nothing full-width leaves the SM.
 // The gathered planes and T1's running sums (2 x 648 MB at phase 3's
@@ -45,8 +48,8 @@
 //  1. the runs pass, a CTA a tile of T4_BLOCKS 512-lane ladder blocks
 //     (RUN_SCAN_TILE lanes), tiles in the order the CTAs start
 //     (csrc/scan.cuh).  The CTA loads the tile's sorted ids and order
-//     words once, with 16-byte loads, into shared memory (the order as
-//     32-bit lanes), with the one id on each side of the tile.  Warp w
+//     words once, with 16-byte loads, into shared memory, with the one id
+//     on each side of the tile.  Warp w
 //     takes ladder block w: its lanes' start flags (a valid id other than
 //     its predecessor's) and end flags (other than its successor's), one
 //     bit a lane, and a ballot a register row, whose popcounts number the
@@ -104,7 +107,7 @@ static_assert(T4_TILE == RUN_SCAN_TILE, "a tile is a run-scan tile");
 template <int R>
 static __global__ void __launch_bounds__(SCAN_THREADS, 2)
 t4_runs_kernel(const int* __restrict__ sid,
-               const long long* __restrict__ order,
+               const int* __restrict__ order,
                const float* __restrict__ vals6, int M, int U, int tiles,
                int nb, int* __restrict__ uids, float* __restrict__ usums,
                int* __restrict__ n_live, int* __restrict__ overflow_unique,
@@ -125,27 +128,22 @@ t4_runs_kernel(const int* __restrict__ sid,
     if (tn == T4_TILE && ((reinterpret_cast<uintptr_t>(sid)
                            | reinterpret_cast<uintptr_t>(order)) & 15) == 0) {
         constexpr int NI = T4_TILE / 4 / SCAN_THREADS;
-        constexpr int NO = T4_TILE / 2 / SCAN_THREADS;
         const int4* s4 = reinterpret_cast<const int4*>(sid + tbase);
-        const longlong2* o2 =
-            reinterpret_cast<const longlong2*>(order + tbase);
-        int4 a[NI];
-        longlong2 o[NO];
+        const int4* o4 = reinterpret_cast<const int4*>(order + tbase);
+        int4 a[NI], o[NI];
 #pragma unroll
         for (int i = 0; i < NI; ++i) a[i] = s4[tid + i * SCAN_THREADS];
 #pragma unroll
-        for (int i = 0; i < NO; ++i) o[i] = o2[tid + i * SCAN_THREADS];
+        for (int i = 0; i < NI; ++i) o[i] = o4[tid + i * SCAN_THREADS];
 #pragma unroll
-        for (int i = 0; i < NI; ++i)
+        for (int i = 0; i < NI; ++i) {
             reinterpret_cast<int4*>(ids_s + 4)[tid + i * SCAN_THREADS] = a[i];
-#pragma unroll
-        for (int i = 0; i < NO; ++i)
-            reinterpret_cast<int2*>(ord_s)[tid + i * SCAN_THREADS] =
-                make_int2((int)o[i].x, (int)o[i].y);
+            reinterpret_cast<int4*>(ord_s)[tid + i * SCAN_THREADS] = o[i];
+        }
     } else {
         for (int l = tid; l < T4_TILE; l += SCAN_THREADS) {
             ids_s[4 + l] = l < tn ? sid[tbase + l] : INVALID_ID;
-            ord_s[l] = l < tn ? (int)order[tbase + l] : 0;
+            ord_s[l] = l < tn ? order[tbase + l] : 0;
         }
     }
     if (tid == 0) ids_s[3] = tbase > 0 ? sid[tbase - 1] : INVALID_ID;
@@ -369,14 +367,14 @@ extern "C" int launch_tsdf_reduce_runs(const void* sid, const void* order,
     int* carry = (int*)aux + 7L * nb;
     if (M <= 2 * SEG_BS) {
         t4_runs_kernel<32><<<1, SCAN_THREADS, 0, st>>>(
-            (const int*)sid, (const long long*)order, (const float*)vals6, M,
+            (const int*)sid, (const int*)order, (const float*)vals6, M,
             U, tiles, nb, (int*)uids, (float*)usums, sc,
             (int*)overflow_unique, (long long*)unique_cells, summ, sflag,
             carry, sc + 2);
         return (int)cudaGetLastError();
     }
     t4_runs_kernel<16><<<tiles, SCAN_THREADS, 0, st>>>(
-        (const int*)sid, (const long long*)order, (const float*)vals6, M, U,
+        (const int*)sid, (const int*)order, (const float*)vals6, M, U,
         tiles, nb, (int*)uids, (float*)usums, sc, (int*)overflow_unique,
         (long long*)unique_cells, summ, sflag, carry, sc + 2);
     int rc = (int)cudaGetLastError();

@@ -46,7 +46,7 @@ LAUNCHES = {"depth_frontend": 0, "hash_insert": 0, "dep_stream": 0,
             "tsdf_surface": 0, "planar_frontend": 0, "tsdf_lanes_planar": 0,
             "neighbor_count": 0, "route_pack": 0, "integrate_lanes": 0,
             "refine_lines": 0, "buffer_replay": 0, "tsdf_reduce": 0,
-            "record_frontend": 0}
+            "record_frontend": 0, "tsdf_sort": 0}
 
 # the build's wall seconds and the ptxas register / shared-memory / spill
 # report of the last build in this process (empty when loaded from disk)
@@ -133,6 +133,10 @@ _SIGNATURES = {
                                 _P, _P],
     # U, scratch (the live count), uslot, usums, vstats, stream
     "launch_tsdf_reduce_scatter": [_I, _P, _P, _P, _P, _P],
+    # skey, M, n_cells, sid, order, alt_k, alt_i, scratch, words, tables,
+    # table words, counts, stream
+    "launch_tsdf_sort": [_P, _I, _I, _P, _P, _P, _P, _P, _L, _P, _L, _P,
+                         _P],
 }
 
 _lock = threading.Lock()
@@ -276,6 +280,35 @@ def lookback_words(n: int, tile: int) -> int:
     counter, then each tile's aggregate and inclusive prefix, 64-bit
     words."""
     return 2 * (1 + 2 * max(-(-n // tile), 1))
+
+
+# lanes a tile of T5's passes (csrc/tsdf_sort.cu T5_TILE), digits a pass,
+# at most passes, and the most entries of the ranks' inverse (T5_INV_CAP)
+SORT_TILE = 4096
+SORT_RADIX = 256
+SORT_MAX_PASSES = 4
+SORT_INV_CAP = 1 << 22
+
+
+def tsdf_sort_words(M: int, n_cells: int) -> int:
+    """The ints of scratch T5 zeroes for a sort of M lanes of ids in [0,
+    n_cells) (csrc/tsdf_sort.cu t5_layout): D, the pass count and the
+    passes' tile counters; the passes' digit histograms; the rank scan's
+    look-back; a status word (64-bit) a tile and digit."""
+    W = -(-n_cells // 32)
+    tiles = max(-(-M // SORT_TILE), 1)
+    return (4 + 2 * SORT_MAX_PASSES + SORT_MAX_PASSES * SORT_RADIX
+            + lookback_words(W, RUN_SCAN_TILE) + 2 * tiles * SORT_RADIX)
+
+
+def tsdf_sort_tables(n_cells: int) -> tuple:
+    """(ints, ints zero between sorts) of T5's tables over ``n_cells``
+    cells (csrc/tsdf_sort.cu t5_tables): a bitmap word a 32 cells and a
+    summary bit a bitmap word, which a sort leaves zero; a rank prefix a
+    bitmap word and the ranks' inverse, at most ``SORT_INV_CAP``."""
+    W = -(-n_cells // 32)
+    W1 = -(-W // 32)
+    return 2 * W + W1 + min(n_cells, SORT_INV_CAP), W + W1
 
 
 def ptr(a) -> int:

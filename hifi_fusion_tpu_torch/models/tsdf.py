@@ -11,11 +11,14 @@ a sample's cell accumulates ``[w, w*sdf, r, g, b, n_rgb]`` (w = 1, sdf =
    and colour with count prefixes or a lane mask): the lane test, the pose
    transform, ray, distance, direction, the S sample positions, their
    cell ids and the six values, lanes laid out ``k*S*N + s*N + n``;
-2. one stable sort of the cell ids (``sort_lanes``);
-3. kernel T4 (``tsdf_reduce``), from the sorted ids and the sort's order:
-   the six channels gathered through the order, their per-cell sums by
-   P2's segment ladder in the JAX package's association order (so the
-   sums are bit-identical; kernel T1's ladder, ``csrc/segladder.cuh``),
+2. one stable sort of the cell ids (``sort_lanes``), kernel T5
+   (``csrc/tsdf_sort.cu``): a radix sort by each id's dense rank among
+   the batch's distinct ids, in as many 8-bit passes as their count needs
+   (two at the tsdf512 batch), with the lanes' i32 order;
+3. kernel T4 (``tsdf_reduce``), from the sorted ids and the sort's i32
+   order: the six channels gathered through the order, their per-cell
+   sums by P2's segment ladder in the JAX package's association order (so
+   the sums are bit-identical; kernel T1's ladder, ``csrc/segladder.cuh``),
    the first U runs (the U smallest ids; the rest are dropped and counted
    in ``overflow_unique``, as the JAX package's ``[:U]`` drops them)
    compacted on the card, their live count added into ``unique_cells``;
@@ -288,11 +291,93 @@ def tsdf_lanes_planar(points: torch.Tensor, rgb: torch.Tensor,
 
 # -- reduce (kernel T4) and integrate -------------------------------------
 
-def sort_lanes(skey: torch.Tensor):
-    """Sample lanes -> ``(sid (M,) i32 sorted stably, INT32_MAX last,
-    order (M,) i64)``: the JAX package's one sort of the batch
-    (tsdf.py:146-150), whose payload T4 gathers through ``order``."""
-    return torch.sort(skey, stable=True)
+class SortTables:
+    """T5's tables over ``n_cells`` cells on a CUDA device, kept between
+    sorts (``kernels.tsdf_sort_tables``): a bitmap of the cells and a
+    summary bit a bitmap word, which every sort leaves zero, the bitmap
+    words' rank prefixes and the ranks' inverse; and ``counts``, (3,) i64:
+    the batches sorted, the radix passes run and the lanes whose id lay
+    outside [0, ``n_cells``) and was not INT32_MAX, added on the card by
+    the sorts that use these tables and read by nothing during a
+    dispatch.  A grid's sorts share one (``grid_sort_tables``); one is
+    used by one stream at a time."""
+
+    def __init__(self, n_cells: int, device):
+        words, zero = kernels.tsdf_sort_tables(n_cells)
+        self.n_cells = n_cells
+        self.tables = torch.empty((words,), dtype=torch.int32, device=device)
+        self.tables[:zero].zero_()
+        self.counts = torch.zeros((3,), dtype=torch.int64, device=device)
+
+    def metrics(self) -> dict:
+        """The counts, one fetch."""
+        return dict(zip(("sort_batches", "sort_passes",
+                         "sort_lanes_out_of_range"), self.counts.tolist()))
+
+
+def grid_sort_tables(grid: TsdfGrid, n_cells: int):
+    """The grid's ``SortTables``, made at its first sort on the card (an
+    attribute of the grid object, not a field: no copy, checkpoint or
+    ``grid_metrics`` holds it); None on the CPU."""
+    st = getattr(grid, "sort_tables", None)
+    if st is None and grid.device.type == "cuda":
+        st = grid.sort_tables = SortTables(n_cells, grid.device)
+    return st
+
+
+def sort_lanes_plain(skey: torch.Tensor):
+    """Plain version of T5: ``torch.sort(stable=True)``, its order cast to
+    i32.  A stable sort's output is unique, so it is T5's exactly."""
+    sid, order = torch.sort(skey, stable=True)
+    return sid, order.to(torch.int32)
+
+
+def sort_lanes(skey: torch.Tensor, n_cells: int,
+               tables: SortTables = None):
+    """Sample lanes, each id in [0, ``n_cells``) or INT32_MAX -> ``(sid
+    (M,) i32 sorted stably, INT32_MAX last, order (M,) i32)``: the JAX
+    package's one sort of the batch (tsdf.py:146-150), whose payload T4
+    gathers through ``order``.
+
+    Kernel T5 (``csrc/tsdf_sort.cu``, counted as ``tsdf_sort``) on CUDA
+    tensors: the mark of the batch's ids in ``tables`` (a ``SortTables``
+    over ``n_cells``; None: a new one), their dense ranks, the ranks'
+    digit histograms and the radix passes the batch's distinct-id count
+    needs (the others exit at once), reading nothing back to the host;
+    its batch and pass counts go into ``tables.counts``.  An id outside
+    [0, ``n_cells``) other than INT32_MAX is counted there too, and its
+    place and the id written for it are undefined.  Its plain version on
+    CPU tensors; the two agree id for id and index for index."""
+    M = skey.numel()
+    dev = skey.device
+    kernels.check_inputs(dev, ("skey", skey, torch.int32, (M,)))
+    if dev.type == "cpu":
+        return sort_lanes_plain(skey)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if M >= 2 ** 31 - kernels.SORT_TILE or not 0 < n_cells < 2 ** 31:
+        raise ValueError(f"{M} lanes of {n_cells} cells: T5 indexes lanes "
+                         f"and cells in 32 bits")
+    if tables is None:
+        tables = SortTables(n_cells, dev)
+    if tables.n_cells != n_cells or tables.tables.device != dev:
+        raise ValueError(f"tables of {tables.n_cells} cells on "
+                         f"{tables.tables.device} for {n_cells} on {dev}")
+    sid = torch.empty((M,), dtype=torch.int32, device=dev)
+    order = torch.empty((M,), dtype=torch.int32, device=dev)
+    if M == 0:
+        return sid, order
+    alt = torch.empty((2, M), dtype=torch.int32, device=dev)
+    words = kernels.tsdf_sort_words(M, n_cells)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    kernels.check(lib.launch_tsdf_sort(
+        skey.data_ptr(), M, n_cells, sid.data_ptr(), order.data_ptr(),
+        alt[0].data_ptr(), alt[1].data_ptr(), scratch.data_ptr(), words,
+        tables.tables.data_ptr(), tables.tables.numel(),
+        tables.counts.data_ptr(), kernels.stream()), "tsdf_sort")
+    kernels.LAUNCHES["tsdf_sort"] += 1
+    return sid, order
 
 
 def tsdf_reduce_plain(grid: TsdfGrid, sid, order, vals6, U: int,
@@ -322,8 +407,8 @@ def tsdf_reduce_plain(grid: TsdfGrid, sid, order, vals6, U: int,
 
 def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, order: torch.Tensor,
                 vals6: torch.Tensor, U: int, config: TsdfConfig) -> TsdfGrid:
-    """The batch's sorted ids and the sort's order (``sort_lanes``) and
-    its (6,M) sample values in lane order -> the grid update in place
+    """The batch's sorted ids and the sort's i32 order (``sort_lanes``)
+    and its (6,M) sample values in lane order -> the grid update in place
     (tsdf.py:146-182): each cell's six sums in the JAX package's ladder
     order, the first U distinct cells (the smallest ids; the rest are
     dropped and counted in ``overflow_unique``), their find-or-insert (K2,
@@ -341,7 +426,7 @@ def tsdf_reduce(grid: TsdfGrid, sid: torch.Tensor, order: torch.Tensor,
     M = sid.numel()
     dev = sid.device
     kernels.check_inputs(dev, ("sid", sid, torch.int32, (M,)),
-                         ("order", order, torch.int64, (M,)),
+                         ("order", order, torch.int32, (M,)),
                          ("vals6", vals6, torch.float32, (6, M)))
     if not 0 <= U <= M or grid.device != dev:
         raise ValueError(f"U {U} of {M} lanes, grid on {grid.device}")
@@ -383,7 +468,8 @@ def _reduce(grid: TsdfGrid, skey, vals6, K: int, U: int,
     """The lanes of K frames into the grid with budget U: the spans
     ``tsdf.sort`` and ``tsdf.reduce``."""
     with span("tsdf.sort"):
-        sid, order = sort_lanes(skey)
+        n = config.base.n_cells
+        sid, order = sort_lanes(skey, n, grid_sort_tables(grid, n))
     with span("tsdf.reduce"):
         tsdf_reduce(grid, sid, order, vals6, U, config)
     grid.frames += K
@@ -667,6 +753,17 @@ class TsdfPipeline:
             return out if fields is None else {k: out[k] for k in fields}
 
         return fetch
+
+    def sort_metrics(self, grid: TsdfGrid) -> dict:
+        """T5's counts over the grid's sorts (``grid_sort_tables``): the
+        batches sorted, the radix passes run and the lanes out of range;
+        zeros for a grid never sorted on the card (the CPU's plain sort
+        runs no radix pass).  One fetch."""
+        st = getattr(grid, "sort_tables", None)
+        if st is None:
+            return {"sort_batches": 0, "sort_passes": 0,
+                    "sort_lanes_out_of_range": 0}
+        return st.metrics()
 
     def grid_metrics(self, grid: TsdfGrid) -> dict:
         """tsdf.py:421-431: occupied slots, frames, both overflow

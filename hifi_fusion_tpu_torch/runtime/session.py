@@ -46,7 +46,10 @@ contract:
   takes;
 * ``metrics()`` adds the session's counters, ``stage_timers`` (the JAX
   package's stage names, ``STAGES``) and ``spans`` (every other span) to
-  the grid's; the command line's ``metrics`` control verb returns them.
+  the grid's, and for the TSDF family the batch sort's counts over the
+  session grid's sorts (``sort_batches``, ``sort_passes``,
+  ``sort_lanes_out_of_range``: ``TsdfPipeline.sort_metrics``); the
+  command line's ``metrics`` control verb returns them.
 
 Each stage and span is one ``utils/profiling`` span: host seconds, count
 and mean in ``metrics()`` (``{total_s, count, mean_ms}``) and, while
@@ -826,6 +829,8 @@ class FusionSession:
     def metrics(self) -> Dict:
         with self._glock:
             m = self.pipeline.grid_metrics(self._grid)
+            if self.model == "tsdf":
+                m.update(self.pipeline.sort_metrics(self._grid))
         timers = self.timers.report()
         m.update({
             "frames_received": self._frames_in,

@@ -46,6 +46,8 @@ the ``lanes`` section's checks, which come from the checkout's own
   (``tsdf.sorted_sums``), the sort, the gather, T1 and T4 with K2; else
   the sort, the gather, T1, the two ``nonzero`` reads, K2 and
   ``index_add_``; its events span any wait of the host on a read;
+* ``tsdf_sort``: for a checkout with ``tsdf.sort_lanes``, that sort
+  alone on the batch's ids (kernel T5 where the checkout has it);
 * ``tsdf_reduce/after_sort``: the stage from the sorted ids and order on,
   for a checkout with T4 (the first: T4; the second: the starts, the
   gather, T1 and T4);
@@ -145,7 +147,7 @@ TIMED = ("depth_frontend", "hash_insert/integrate", "hash_insert/refine",
          "integrate_lanes", "refine_lines", "refine_lines/sort",
          "refine_lines/hand", "buffer_replay", "tsdf_reduce",
          "tsdf_reduce/stage", "tsdf_reduce/sort", "tsdf_reduce/gather",
-         "tsdf_reduce/gather_rows", "tsdf_reduce/after_sort")
+         "tsdf_reduce/gather_rows", "tsdf_reduce/after_sort", "tsdf_sort")
 
 
 def smoke(path=HERE / "chip_smoke.py"):
@@ -318,9 +320,26 @@ def child(root: str, sections=SECTIONS) -> dict:
             torch, lambda: rows[order], tuple, reps=REPS)
         del rows
         if hasattr(tsdf, "sort_lanes"):
-            # T4 gathers through the sort's order and runs the ladder
+            # T4 gathers through the sort's order and runs the ladder; a
+            # checkout with T5 sorts by the grid's cell range, into an
+            # i32 order, with tables kept between sorts where it has them
+            n_params = len(inspect.signature(tsdf.sort_lanes).parameters)
+            if n_params == 3:
+                tables = tsdf.SortTables(tcfg.base.n_cells, skey.device)
+
+                def sort(k):
+                    return tsdf.sort_lanes(k, tcfg.base.n_cells, tables)
+            elif n_params == 2:
+                def sort(k):
+                    return tsdf.sort_lanes(k, tcfg.base.n_cells)
+            else:
+                sort = tsdf.sort_lanes
+            sid, order = sort(skey)
+            res["tsdf_sort"] = cs.device_ms(torch, lambda: sort(skey),
+                                            tuple, reps=REPS)
+
             def stage(g):
-                tsdf.tsdf_reduce(g, *tsdf.sort_lanes(skey), vals, U, tcfg)
+                tsdf.tsdf_reduce(g, *sort(skey), vals, U, tcfg)
 
             def after(g):
                 tsdf.tsdf_reduce(g, sid, order, vals, U, tcfg)

@@ -62,6 +62,23 @@ def test_tsdf_reduce_bytes(M, n_live, n_new, n_placed):
     assert b["bound_by"] == "bytes"
 
 
+@pytest.mark.parametrize("M,D,passes", [
+    # the tsdf512 batch (8 x 15 x 640x480 lanes, ~30 k cells): two passes
+    (36_864_000, 30_000, 2), (36_864_000, 65_535, 2),
+    (27_033_600, 1_200_000, 3), (1000, 0, 1), (1000, 255, 1),
+    (1000, 256, 2), (1 << 24, 1 << 24, 4)])
+def test_tsdf_sort_bytes(M, D, passes):
+    # the passes the design runs follow D; the bound is the function's
+    # own I/O whatever D: the ids in, sid and the i32 order out
+    assert bounds.tsdf_sort_passes(D) == passes
+    b = bounds.tsdf_sort(M)
+    assert b["bytes"] == 12 * M and b["ops"] == 0
+    assert b["bound_by"] == "bytes"
+    if M == 36_864_000:
+        assert b["bytes"] == 442_368_000
+        assert b["bound_ms"] == pytest.approx(0.13205, abs=1e-5)
+
+
 @pytest.mark.parametrize("U,n_new", [(1000, 0), (60_000, 25_000)])
 def test_hash_insert_bytes(U, n_new):
     assert bounds.hash_insert(U, n_new)["bytes"] == 12 * U + 4 * n_new + 4

@@ -1253,6 +1253,8 @@ def test_integrate_reads_nothing_and_refine_reads_once(state):
 # lanes of the first cell's run, budget U), each reduced into a grid that
 # holds a first batch of 500 cells
 T4_TILE = kernels.RUN_SCAN_TILE
+# the id range of ``checks.tsdf_reduce_case``'s lanes, which T5 sorts
+T4_IDS = 1 << 20
 T4_CASES = {
     "under_u": (700, 12288, -1, 0, 1000),
     "u_plus_one": (1001, 12288, -1, 0, 1000),
@@ -1288,12 +1290,13 @@ def _t4_inputs(dev, case):
     first = checks.tsdf_reduce_case(500, 12288, seed=1)
     grid = tsdf.make_tsdf_grid(TCFG, dev)
     skey1, vals1 = (torch.from_numpy(a).to(dev) for a in first)
-    tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey1), vals1, 1000, TCFG)
+    tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey1, T4_IDS), vals1, 1000,
+                     TCFG)
     return grid, skey, vals6, U
 
 
 def _t4_reduce(fn, grid, skey, vals6, U, cfg):
-    fn(grid, *tsdf.sort_lanes(skey), vals6, U, cfg)
+    fn(grid, *tsdf.sort_lanes(skey, T4_IDS), vals6, U, cfg)
     torch.cuda.synchronize()
     return checks.tsdf_by_cell(convert.tsdf_grid_to_numpy(grid, cfg),
                                cfg.base.capacity)
@@ -1325,7 +1328,7 @@ def test_tsdf_reduce_repeat_bit_identical(dev, case):
     another slot): no atomics decide a sum."""
     grid, skey, vals6, U = _t4_inputs(dev, case)
     ga, gb = _grid_copy(grid), _grid_copy(grid)
-    sid, order = tsdf.sort_lanes(skey)
+    sid, order = tsdf.sort_lanes(skey, T4_IDS)
     for g in (ga, gb):
         tsdf.tsdf_reduce(g, sid, order, vals6, U, TCFG)
     torch.cuda.synchronize()
@@ -1370,7 +1373,8 @@ def test_tsdf_reduce_reads_nothing(dev):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey), vals6, 1000, TCFG)
+        tsdf.tsdf_reduce(grid, *tsdf.sort_lanes(skey, T4_IDS), vals6, 1000,
+                         TCFG)
         pipe.step_batch_depth(grid, *b, rays)
     finally:
         torch.cuda.set_sync_debug_mode(0)

@@ -33,8 +33,9 @@ wires, a 96-frame K=8 sweep: the batches the pipeline receives are the
 direct calls' bit for bit and the grid agrees with theirs
 (``checks.grid_problems``: every integer exactly, cylinder sums within
 ``checks.RTOL``), ``push.stage`` counts every frame, ``device_step`` makes
-no synchronizing call (``torch.cuda.set_sync_debug_mode("error")``) and
-the scan's peak device memory equals the direct calls'.
+no synchronizing call (``torch.cuda.set_sync_debug_mode("error")``), also
+in a TSDF session's depth scan, and the scan's peak device memory equals
+the direct calls'.
 """
 
 import contextlib
@@ -496,12 +497,13 @@ def _fresh_peak():
     torch.cuda.reset_peak_memory_stats()
 
 
-def _card_scan(card, wire, patch=None):
-    """A 96-frame K=8 sweep through a session on the card: the grid, the
-    metrics, each batch the pipeline received and the scan's peak device
-    memory above its start."""
+def _card_scan(card, wire, patch=None, model="fusion"):
+    """A 96-frame K=8 sweep through a session of ``model`` on the card:
+    the grid, the metrics, each batch the pipeline received and the scan's
+    peak device memory above its start."""
     inputs = []
-    with FusionSession(CCFG, "cuda", batch_fill_wait=5.0) as s:
+    with FusionSession(CCFG, "cuda", batch_fill_wait=5.0, model=model,
+                       model_params=TSDF if model == "tsdf" else None) as s:
         s.warm(rays=CRAYS if wire == "depth" else None,
                depth=wire == "depth", planar=wire != "depth")
         name = "step_batch_depth" if wire == "depth" else "step_batch"
@@ -558,29 +560,63 @@ def test_card_session_equals_direct_steps(card, wire):
     assert checks.grid_problems(grid, ref, CCFG, normal_tol=1e-5) == []
 
 
+def _no_sync_in_device_step(s):
+    """Run every ``device_step`` of session ``s`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call
+    fails its dispatch."""
+    outer = s.timers.stage
+
+    @contextlib.contextmanager
+    def stage(name):
+        with outer(name):
+            if name != "device_step":
+                yield
+                return
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    s.timers.stage = stage
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["depth", "records"])
 def test_card_device_step_makes_no_sync(card, wire):
-    def patch(s):
-        outer = s.timers.stage
-
-        @contextlib.contextmanager
-        def stage(name):
-            with outer(name):
-                if name != "device_step":
-                    yield
-                    return
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    yield
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-
-        s.timers.stage = stage
-
-    _, m, _, _ = _card_scan(card, wire, patch=patch)
+    _, m, _, _ = _card_scan(card, wire, patch=_no_sync_in_device_step)
     assert m["dispatch_errors"] == 0 and m["frames_integrated"] == 96
     assert m["spans"]["push.stage"]["count"] == 96
+
+
+@pytest.mark.cuda
+def test_card_tsdf_device_step_makes_no_sync(card):
+    """A K=8 TSDF depth scan: every dispatch, the batch sort (kernel T5,
+    which finds its pass count on the card) with it, makes no
+    synchronizing call."""
+    _, m, _, _ = _card_scan(card, "depth", patch=_no_sync_in_device_step,
+                            model="tsdf")
+    assert m["dispatch_errors"] == 0 and m["frames_integrated"] == 96
+    assert m["spans"]["push.stage"]["count"] == 96
+    # the session grid's sorts alone: the scan's 12 batches (warm() sorts
+    # into a grid of its own), each with the passes its distinct ids need
+    from hifi_fusion_tpu_torch import bounds
+    from hifi_fusion_tpu_torch.models import tsdf
+    tcfg = TsdfConfig(base=CCFG, **TSDF)
+    pipe = TsdfPipeline(tcfg, "cuda")
+    passes = 0
+    for b in range(0, 96, 8):
+        fs = card["depth"][b:b + 8]
+        skey = tsdf.tsdf_lanes(
+            pipe.put(np.stack([f.depth_q for f in fs])),
+            pipe.put(np.stack([f.rgb565 for f in fs])),
+            pipe.put(np.full((8,), fs[0].depth_q.size, np.int32)),
+            pipe.put(np.stack([f.pose for f in fs])), pipe.put(CRAYS),
+            tcfg)[0]
+        D = int(torch.unique(skey[skey != tsdf.BIG]).numel())
+        passes += bounds.tsdf_sort_passes(D)
+    assert (m["sort_batches"], m["sort_passes"],
+            m["sort_lanes_out_of_range"]) == (12, passes, 0)
 
 
 def _peak(side, wire):

@@ -141,7 +141,7 @@ def test_t4_at_the_configuration_batch():
     skey, vals6 = (torch.from_numpy(a).to(dev) for a in
                    checks.tsdf_reduce_case(cells, M, seed=20, n_valid=M,
                                            id_range=base.n_cells))
-    sid, order = tsdf.sort_lanes(skey)
+    sid, order = tsdf.sort_lanes(skey, base.n_cells)
     out = []
     for fn in (tsdf.tsdf_reduce, tsdf.tsdf_reduce_plain):
         g = tsdf.make_tsdf_grid(cfg, dev)

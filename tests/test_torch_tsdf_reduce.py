@@ -28,6 +28,7 @@ from hifi_fusion_tpu_torch.models import tsdf
 KW = dict(refine_every=0, z_clip=(0.05, 10.0))
 TINY = dict(KW, capacity_log2=8, max_probes=4)
 M, U = 12288, 1000
+IDS = 1 << 13                   # the lanes' id range
 # (base config, cells of the reduced batch, its valid lanes (-1: 3/4 of
 # its lanes), lanes added to its first cell's run, its lanes, its U)
 CASES = {
@@ -59,7 +60,8 @@ def _reduce_both(kw, batches):
     pg = tsdf.make_tsdf_grid(cfg, "cpu")
     jg = jtsdf.make_tsdf_grid(jcfg)
     for skey, vals6, u in batches:
-        tsdf.tsdf_reduce(pg, *tsdf.sort_lanes(torch.from_numpy(skey)),
+        tsdf.tsdf_reduce(pg, *tsdf.sort_lanes(torch.from_numpy(skey),
+                                              IDS),
                          torch.from_numpy(vals6), u, cfg)
         pg.frames += 1
         jg = _jax_reduce(jg, skey, vals6, u, config=jcfg)
@@ -71,9 +73,9 @@ def _reduce_both(kw, batches):
 @pytest.mark.parametrize("case", list(CASES))
 def test_reduce_matches_jax(case):
     kw, n_cells, n_valid, run, m, u = CASES[case]
-    first = checks.tsdf_reduce_case(500, M, seed=1, id_range=1 << 13)
+    first = checks.tsdf_reduce_case(500, M, seed=1, id_range=IDS)
     batch = checks.tsdf_reduce_case(n_cells, m, seed=2, n_valid=n_valid,
-                                    run_lanes=run, id_range=1 << 13)
+                                    run_lanes=run, id_range=IDS)
     port, ref, C = _reduce_both(kw, [(*first, U), (*batch, u)])
     assert checks.tsdf_grid_problems(port, ref, C) == []
     a, b = checks.tsdf_by_cell(port, C), checks.tsdf_by_cell(ref, C)
